@@ -1,0 +1,367 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (kmcex_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one line each (any failure exits non-zero):
+
+  1. card: nvidia-smi name and power limit, torch and CUDA versions;
+  2. build: the CUDA kernel library (nvcc, sm_90a) and the native host
+     library (g++), from the sources in this checkout;
+  3. each kernel against its plain PyTorch version on the card, at the
+     shapes the main path gives it, exact (integer) equality, with median
+     kernel and plain times from CUDA events;
+  4. the port's CLI build on the realistic-spectrum workload (the seeded
+     generator of bench.py: 2M-base genome, 533,000 x 150 bp reads, 0.5%
+     errors; k=31 ci=1 cs=1023 nh=7 nb=5): 10,883,515 distinct k-mers, and
+     the KMC1 database and the model byte-identical to an independent numpy
+     count fed to the port's host encoder;
+  5. the same on the headline workload (200,000 reads, 0.2% errors) with a
+     small raw tier, so the run LSM collapses and merges;
+
+then one JSON line with every kernel's launches on the main path (phases 4
+and 5) and times, the card line, and the result line.  Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+REPO = pathlib.Path(__file__).resolve().parent
+READ_LEN = 150
+K, CI, CS, NH, NB = 31, 1, 1023, 7, 5
+REALISTIC_DISTINCT = 10_883_515
+# phase-3 shapes: the default raw tier's collapse size, and two runs of the
+# run LSM at the headline workload's merge size
+SORT_N = 64 << 20
+MERGE_RUN = 16 << 20
+SENT = -1
+FILES = ["o.res.kmc_pre", "o.res.kmc_suf", "o.res/header", "o.res/km.bin",
+         "o.res/rest.bin"]
+
+
+def make_reads(genome_len: int, n_reads: int, seed: int, err_rate: float):
+    """A copy of bench.py:make_fastq's generator, returning the ASCII reads
+    ([n_reads, 150] uint8) instead of writing them."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size=genome_len).astype(np.uint8)
+    starts = rng.integers(0, genome_len - READ_LEN, size=n_reads)
+    idx = starts[:, None] + np.arange(READ_LEN)[None, :]
+    reads = genome[idx]
+    # sequencing errors + rare Ns (0.05%)
+    err = rng.random(reads.shape) < err_rate
+    reads = np.where(err, (reads + rng.integers(1, 4, size=reads.shape)) % 4, reads)
+    acgt = np.frombuffer(b"ACGTN", dtype=np.uint8)
+    ascii_reads = acgt[reads]
+    ascii_reads[rng.random(reads.shape) < 0.0005] = ord("N")
+    return ascii_reads
+
+
+def write_fastq(path: pathlib.Path, ascii_reads: np.ndarray) -> None:
+    qual = np.full(READ_LEN, ord("I"), dtype=np.uint8)
+    with open(path, "wb") as f:
+        chunk = []
+        for i in range(len(ascii_reads)):
+            chunk.append(b"@r%d\n" % i)
+            chunk.append(ascii_reads[i].tobytes())
+            chunk.append(b"\n+\n")
+            chunk.append(qual.tobytes())
+            chunk.append(b"\n")
+            if len(chunk) >= 5000:
+                f.write(b"".join(chunk))
+                chunk = []
+        f.write(b"".join(chunk))
+
+
+def oracle_counts(ascii_reads: np.ndarray, k: int):
+    """Independent numpy count: the canonical k-mer of every fully-ACGT
+    k-window of every read, counted with np.unique."""
+    lut = np.full(256, 255, dtype=np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    W = READ_LEN - k + 1
+    parts = []
+    for a in range(0, len(ascii_reads), 20000):
+        codes = lut[ascii_reads[a : a + 20000]]
+        bad = codes > 3
+        c = np.where(bad, 0, codes).astype(np.uint64)
+        fwd = np.zeros((len(c), W), np.uint64)
+        rc = np.zeros((len(c), W), np.uint64)
+        for t in range(k):
+            fwd |= c[:, t : t + W] << np.uint64(2 * (k - 1 - t))
+            rc |= (np.uint64(3) - c[:, t : t + W]) << np.uint64(2 * t)
+        nbad = np.concatenate([np.zeros((len(c), 1), np.int32),
+                               np.cumsum(bad, axis=1, dtype=np.int32)], axis=1)
+        ok = (nbad[:, k:] - nbad[:, :-k]) == 0
+        parts.append(np.minimum(fwd, rc)[ok])
+    kmers, counts = np.unique(np.concatenate(parts), return_counts=True)
+    return kmers, counts
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def timed(fn, reps: int = 5):
+    """(last result, median ms) over ``reps`` calls, CUDA events around
+    each, synchronized after each launch."""
+    import torch
+
+    times, res = [], None
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        res = fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return res, float(np.median(times))
+
+
+def max_abs_err(pairs) -> float:
+    err = 0.0
+    for got, want in pairs:
+        if got.shape != want.shape:
+            raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+        if got.numel():
+            err = max(err, float((got.double() - want.double()).abs().max()))
+    return err
+
+
+def phase_kernels(dev):
+    import torch
+
+    from kmcex_tpu_torch.core.codec import BIAS
+    from kmcex_tpu_torch.count import compact, sort
+
+    rng = np.random.default_rng(2024)
+    out = {}
+
+    # sort_u64: 64M keys (the raw tier's collapse size), ~10% SENTINEL,
+    # half with bit 63 set (k = 32 keys)
+    n = SORT_N
+    x_np = rng.integers(0, 1 << 63, n, dtype=np.int64)
+    x_np[rng.random(n) < 0.5] |= BIAS
+    x_np[rng.random(n) < 0.1] = SENT
+    x = torch.from_numpy(x_np).to(dev)
+    del x_np
+    got, ms = timed(lambda: sort.sort_u64(x))
+    want, plain_ms = timed(lambda: sort.sort_u64_plain(x))
+    err = max_abs_err([(got, want)])
+    p = torch.arange(n, dtype=torch.int32, device=dev)
+    (gk, gp), ms_p = timed(lambda: sort.sort_u64(x, p))
+    (wk, _), plain_ms_p = timed(lambda: sort.sort_u64_plain(x, p))
+    err = max(err, max_abs_err([(gk, wk), (x[gp.long()], gk)]))
+    if not bool((torch.bincount(gp.long(), minlength=n) == 1).all()):
+        raise AssertionError("sort_u64 payload is not a permutation")
+    if err:
+        raise AssertionError(f"sort_u64 disagrees with its plain version: {err}")
+    print(f"[kernels] sort_u64 n={n}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms;"
+          f" with int32 payload: kernel {ms_p:.3f} ms, plain {plain_ms_p:.3f} ms;"
+          f" exact")
+    out["sort_u64"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    del x, got, want, p, gk, gp, wk
+
+    # merge_sorted_u64: two SENTINEL-padded 16M runs (run-LSM shape), then
+    # two runs of < 2048 keys in total (the one-block case)
+    def run(m, fill):
+        k = torch.from_numpy(rng.integers(0, 1 << 63, m, dtype=np.int64)
+                             | np.where(rng.random(m) < 0.5, BIAS, 0)).to(dev)
+        k = sort.sort_u64_plain(k)
+        real = int(m * fill)
+        k[real:] = SENT
+        c = torch.from_numpy(rng.integers(1, 1 << 20, m).astype(np.int32)).to(dev)
+        c[real:] = 0
+        return k, c
+
+    errs, times = [], {}
+    for label, (la, lb) in (("16M+16M", (MERGE_RUN, MERGE_RUN)),
+                            ("700+1100", (700, 1100))):
+        a, ca = run(la, 0.85)
+        b, cb = run(lb, 0.7)
+        (gk, gc), t = timed(lambda: sort.merge_sorted_u64(a, ca, b, cb))
+        (wk, wc), tp = timed(lambda: sort.merge_sorted_u64_plain(a, ca, b, cb))
+        errs.append(max_abs_err([(gk, wk), (gc, wc)]))
+        times[label] = (t, tp)
+    if max(errs):
+        raise AssertionError(f"merge_sorted_u64 disagrees: {errs}")
+    (ms, plain_ms), (ms1, plain_ms1) = times["16M+16M"], times["700+1100"]
+    print(f"[kernels] merge_sorted_u64 16M+16M padded: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms; 700+1100: kernel {ms1:.3f} ms, plain "
+          f"{plain_ms1:.3f} ms; exact")
+    out["merge_sorted_u64"] = dict(max_abs_err=max(errs), ms=ms,
+                                   plain_ms=plain_ms)
+
+    # compact_pairs: 64M (key, count) pairs, ~80% holes (segment-count shape:
+    # ascending keys, duplicate slots holed)
+    keys = sort.sort_u64_plain(torch.from_numpy(
+        rng.integers(0, 1 << 62, n, dtype=np.int64)).to(dev))
+    holes = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+    keys[holes] = SENT
+    cnt = torch.from_numpy(rng.integers(1, 1 << 20, n).astype(np.int32)).to(dev)
+    cnt[holes] = 0
+    (gk, gc), ms = timed(lambda: compact.compact_pairs(keys, cnt))
+    (wk, wc), plain_ms = timed(lambda: compact.compact_pairs_plain(keys, cnt))
+    err = max_abs_err([(gk, wk), (gc, wc)])
+    if err:
+        raise AssertionError(f"compact_pairs disagrees: {err}")
+    print(f"[kernels] compact_pairs n={n} 80% holes: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms; exact")
+    out["compact_pairs"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    del keys, holes, cnt, gk, gc, wk, wc
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_cli(work: pathlib.Path, name: str, ascii_reads, extra_env=None):
+    """Write the FASTQ, run the port's CLI on cuda, check it against the
+    numpy oracle byte for byte; returns (distinct, stats)."""
+    from kmcex_tpu_torch.cli import main
+    from kmcex_tpu_torch.io.kmc_db import KMC1StreamWriter
+    from kmcex_tpu_torch.model.kmodel import get_model
+
+    fq = work / f"{name}.fastq"
+    write_fastq(fq, ascii_reads)
+    wd = work / name
+    wd.mkdir()
+    stats_json = wd / "stats.json"
+    env = {"KMCEX_STATS_JSON": str(stats_json), **(extra_env or {})}
+    old = {k_: os.environ.get(k_) for k_ in env}
+    os.environ.update(env)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(["kmcex", f"-k{K}", f"-nh{NH}", f"-nb{NB}", str(fq),
+                       str(wd / "o.res"), str(wd)])
+    finally:
+        for k_, v in old.items():
+            if v is None:
+                os.environ.pop(k_, None)
+            else:
+                os.environ[k_] = v
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc}")
+    text = buf.getvalue()
+    distinct = int(text.split("total kmercount")[1].split(":")[1].split()[0])
+    stats = json.loads(stats_json.read_text())
+
+    kmers, counts = oracle_counts(ascii_reads, K)
+    counts = np.minimum(counts, CS).astype(np.uint32)
+    keep = counts >= CI
+    kmers, counts = kmers[keep], counts[keep]
+    od = work / f"{name}_oracle"
+    km = get_model(CI, CS, NH, NB)
+    km.init_from_pairs(kmers, counts, K)
+    km.save(od / "o.res")
+    w = KMC1StreamWriter(str(od / "o.res"), K, min_count=CI, max_count=CS)
+    w.write_chunk(kmers, counts.astype(np.uint64))
+    w.close()
+    if distinct != len(kmers):
+        raise AssertionError(f"{name}: CLI counted {distinct} distinct, "
+                             f"oracle {len(kmers)}")
+    for fn in FILES:
+        if (wd / fn).read_bytes() != (od / fn).read_bytes():
+            raise AssertionError(f"{name}: {fn} differs from the oracle")
+    return distinct, stats
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    card = nvidia_smi()
+    print(f"[card] {card}; torch {torch.__version__}; CUDA "
+          f"{torch.version.cuda}; device {torch.cuda.get_device_name(0)}")
+    sys.path.insert(0, str(REPO))
+    from kmcex_tpu_torch import native
+    from kmcex_tpu_torch.native import build, kernels
+
+    t = time.time()
+    build.build_kernels(force=True)
+    kernels.lib()
+    t_k = time.time() - t
+    t = time.time()
+    build.build_native(force=True)
+    native.lib()
+    t_n = time.time() - t
+    print(f"[build] CUDA kernels {t_k:.2f} s, native host library {t_n:.2f} s")
+
+    dev = torch.device("cuda")
+    bench = phase_kernels(dev)
+
+    build_dir = REPO / "kmcex_tpu_torch" / "_build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="smoke_", dir=build_dir) as tmp:
+        work = pathlib.Path(tmp)
+        kernels.reset_launches()  # the main path's run starts here
+        reads = make_reads(2_000_000, 533_000, 4242, 0.005)
+        distinct, st = run_cli(work, "realistic", reads)
+        l4 = dict(kernels.LAUNCHES)
+        if distinct != REALISTIC_DISTINCT:
+            raise AssertionError(f"realistic: {distinct} distinct k-mers, "
+                                 f"expected {REALISTIC_DISTINCT}")
+        if not (l4["sort_u64"] > 0 and l4["compact_pairs"] > 0):
+            raise AssertionError(f"realistic run skipped a kernel: {l4}")
+        secs = st["count_seconds"] + st["encode_seconds"]
+        print(f"[realistic] reads {st['reads']}, distinct {distinct}, count "
+              f"{st['count_seconds']:.3f} s, encode {st['encode_seconds']:.3f} s, "
+              f"{st['reads'] / secs / 1e6:.4f} Mreads/s, launches {l4}, "
+              f"tiers {st['tiers']}; DB and model byte-identical to the "
+              f"numpy oracle")
+        del reads
+
+        reads = make_reads(2_000_000, 200_000, 12345, 0.002)
+        distinct, st = run_cli(work, "headline", reads,
+                               {"KMCEX_RAW_TIER_ELEMS": "8388608"})
+        l5 = {k_: v - l4[k_] for k_, v in kernels.LAUNCHES.items()}
+        if not all(v > 0 for v in l5.values()):
+            raise AssertionError(f"run-LSM run skipped a kernel: {l5}")
+        secs = st["count_seconds"] + st["encode_seconds"]
+        print(f"[run-lsm] reads {st['reads']}, distinct {distinct}, count "
+              f"{st['count_seconds']:.3f} s, encode {st['encode_seconds']:.3f} s, "
+              f"{st['reads'] / secs / 1e6:.4f} Mreads/s, launches {l5}, "
+              f"tiers {st['tiers']}; DB and model byte-identical to the "
+              f"numpy oracle")
+    launches = dict(kernels.LAUNCHES)
+
+    src = {"sort_u64": ("kmcex_tpu_torch/csrc/sort.cu",
+                        "kmcex_tpu/count/sort_pallas.py:203",
+                        ["kmcex_tpu/count/sort_pallas.py:266"]),
+           "merge_sorted_u64": ("kmcex_tpu_torch/csrc/merge.cu",
+                                "kmcex_tpu/count/sort_pallas.py:434",
+                                ["kmcex_tpu/count/sort_pallas.py:266"]),
+           "compact_pairs": ("kmcex_tpu_torch/csrc/compact.cu",
+                             "kmcex_tpu/count/compact_pallas.py:157", [])}
+    rows = []
+    for name, (path, repl, also) in src.items():
+        rows.append({"name": name, "route": "cuda", "source": path,
+                     "replaces": repl, "also_replaces": also,
+                     "launches": launches[name], **bench[name]})
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,165 @@
+"""ctypes bindings for the host runtime (the JAX package's
+``native/src/kmcex_native.cpp``, built by ``native.build``).
+
+The native library owns the order-dependent sequential encode (coupled
+bit-array insertion with the reference's rotating bucket schedule), the
+Bloom insert and the packed FASTQ segmenter.  Only the entry points the
+CLI build uses are bound here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+
+import numpy as np
+
+from kmcex_tpu_torch.native.build import build_native
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def lib() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            L = ctypes.CDLL(str(build_native()))
+            _declare(L)
+            _lib = L
+    return _lib
+
+
+def _declare(L: ctypes.CDLL) -> None:
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    L.kx_insert_bloom.restype = None
+    L.kx_insert_bloom.argtypes = [
+        u64p, ctypes.c_int64, ctypes.c_int, u8p, ctypes.c_uint64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ]
+    L.kx_encoder_new.restype = ctypes.c_void_p
+    L.kx_encoder_new.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, u32p, ctypes.c_int64,
+        u8p, u8p, ctypes.c_uint64,
+        u8p, ctypes.c_uint64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+    ]
+    L.kx_encoder_feed.restype = None
+    L.kx_encoder_feed.argtypes = [ctypes.c_void_p, u64p, u32p, ctypes.c_int64]
+    L.kx_encoder_finish.restype = ctypes.c_int64
+    L.kx_encoder_finish.argtypes = [ctypes.c_void_p]
+    L.kx_encoder_take_rest.restype = None
+    L.kx_encoder_take_rest.argtypes = [ctypes.c_void_p, u64p, u32p]
+    L.kx_encoder_free.restype = None
+    L.kx_encoder_free.argtypes = [ctypes.c_void_p]
+    L.kx_segment_buffer_packed.restype = ctypes.c_int64
+    L.kx_segment_buffer_packed.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.c_int, u8p, u8p, ctypes.c_int64, i64p, i64p, i64p,
+    ]
+
+
+def _ptr(arr: np.ndarray, ctype):
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+_n_threads_override = 0
+
+
+def set_num_threads(n: int) -> None:
+    """Host-thread count (the CLI's -t, main.cpp:77); 0 = all cores."""
+    global _n_threads_override
+    _n_threads_override = max(0, int(n))
+
+
+def n_threads_default() -> int:
+    if _n_threads_override:
+        return _n_threads_override
+    return max(1, os.cpu_count() or 1)
+
+
+def insert_bloom(kmers: np.ndarray, k: int, bf: np.ndarray, bit_len: int,
+                 num_hash: int, substr_mode: int = 0, n_threads: int = 0) -> None:
+    kmers = np.ascontiguousarray(kmers, dtype=np.uint64)
+    if bf.dtype != np.uint8 or not bf.flags.c_contiguous:
+        raise ValueError("bloom filter must be a contiguous uint8 array")
+    lib().kx_insert_bloom(
+        _ptr(kmers, ctypes.c_uint64), len(kmers), k,
+        _ptr(bf, ctypes.c_uint8), bit_len, num_hash, substr_mode,
+        n_threads or n_threads_default(),
+    )
+
+
+class BitArrayEncoder:
+    """Incremental coupled-bit-array encoder (the reference's buffered
+    rotating schedule, kmodel.hpp:508-573).  Chunked ``feed`` is
+    bit-identical to one-shot encoding of the concatenated stream — the
+    schedule depends only on overall order — which lets device->host pulls
+    overlap encoding.  ``finish`` returns (rest_kmers, rest_occs): the
+    k-mers that overflowed into the rest store, in hand-off order."""
+
+    def __init__(self, k: int, n_bits: int, n_hash: int, occ2bin: np.ndarray,
+                 bit1: np.ndarray, bit2: np.ndarray, km_bit_size: int,
+                 km_back: np.ndarray, back_bit_len: int, back_num_hash: int,
+                 bucket_size: int = 1 << 18, n_threads: int = 0):
+        for a in (bit1, bit2, km_back):
+            if a.dtype != np.uint8 or not a.flags.c_contiguous:
+                raise ValueError("bit arrays must be contiguous uint8")
+        # keep referenced arrays alive for the encoder's lifetime
+        self._occ2bin = np.ascontiguousarray(occ2bin, dtype=np.uint32)
+        self._refs = (self._occ2bin, bit1, bit2, km_back)
+        self._h = lib().kx_encoder_new(
+            k, n_bits, n_hash,
+            _ptr(self._occ2bin, ctypes.c_uint32), len(self._occ2bin),
+            _ptr(bit1, ctypes.c_uint8), _ptr(bit2, ctypes.c_uint8),
+            km_bit_size,
+            _ptr(km_back, ctypes.c_uint8), back_bit_len, back_num_hash,
+            bucket_size, n_threads or n_threads_default(),
+        )
+
+    def feed(self, kmers: np.ndarray, occs: np.ndarray) -> None:
+        kmers = np.ascontiguousarray(kmers, dtype=np.uint64)
+        occs = np.ascontiguousarray(occs, dtype=np.uint32)
+        lib().kx_encoder_feed(
+            self._h, _ptr(kmers, ctypes.c_uint64),
+            _ptr(occs, ctypes.c_uint32), len(kmers),
+        )
+
+    def finish(self) -> tuple[np.ndarray, np.ndarray]:
+        n = int(lib().kx_encoder_finish(self._h))
+        rk = np.zeros(max(n, 1), dtype=np.uint64)
+        ro = np.zeros(max(n, 1), dtype=np.uint32)
+        lib().kx_encoder_take_rest(
+            self._h, _ptr(rk, ctypes.c_uint64), _ptr(ro, ctypes.c_uint32)
+        )
+        lib().kx_encoder_free(self._h)
+        self._h = None
+        return rk[:n], ro[:n]
+
+
+def segment_buffer_packed(
+    data: np.ndarray, is_fasta: bool, phase: int, k: int, seg_len: int,
+    out_packed: np.ndarray, out_mask: np.ndarray,
+) -> tuple[int, int, int, int, int]:
+    """Packed segmenter: out_packed [cap, seg_len/4] 2-bit codes, out_mask
+    [cap, seg_len/8] validity bits — the device transfer format, written
+    directly from ASCII.  Returns (rows, consumed, reads, bases, phase)."""
+    for a in (out_packed, out_mask):
+        if a.dtype != np.uint8 or not a.flags.c_contiguous:
+            raise ValueError("segment buffers must be contiguous uint8")
+    ph = ctypes.c_int(phase)
+    consumed = np.zeros(1, dtype=np.int64)
+    n_reads = np.zeros(1, dtype=np.int64)
+    n_bases = np.zeros(1, dtype=np.int64)
+    rows = lib().kx_segment_buffer_packed(
+        _ptr(data, ctypes.c_uint8), len(data), int(is_fasta),
+        ctypes.byref(ph), k, seg_len,
+        _ptr(out_packed, ctypes.c_uint8), _ptr(out_mask, ctypes.c_uint8),
+        out_packed.shape[0],
+        _ptr(consumed, ctypes.c_int64), _ptr(n_reads, ctypes.c_int64),
+        _ptr(n_bases, ctypes.c_int64),
+    )
+    return int(rows), int(consumed[0]), int(n_reads[0]), int(n_bases[0]), ph.value

@@ -1,0 +1,138 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and nvcc, and skips without them (the
+decision is made in a fixture, never at import).  Run on a GPU machine:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+
+(``--noconftest``: the repo's conftest imports JAX, which the GPU machine
+need not have; this file imports only torch, numpy and the port.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from kmcex_tpu_torch.count import compact, sort
+from kmcex_tpu_torch.native import kernels
+
+pytestmark = pytest.mark.cuda
+
+S = -1
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _keys(rng, n, sent_frac=0.1):
+    x = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    x[rng.random(n) < sent_frac] = S
+    return x
+
+
+def _u(x: np.ndarray) -> np.ndarray:
+    return x.view(np.uint64)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 2048, 5000, 1 << 16, (1 << 17) + 3])
+def test_sort_u64_matches_plain(dev, n):
+    rng = np.random.default_rng(n)
+    x = _keys(rng, n)
+    t = torch.from_numpy(x).to(dev)
+    before = kernels.LAUNCHES["sort_u64"]
+    got = sort.sort_u64(t)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sort_u64"] == before + 1
+    want = sort.sort_u64_plain(t.cpu())
+    assert torch.equal(got.cpu(), want)
+    assert np.array_equal(_u(got.cpu().numpy()), np.sort(_u(x)))
+
+
+@pytest.mark.parametrize("n", [1000, 4096, (1 << 16) + 5])
+def test_sort_u64_payload_follows_key(dev, n):
+    rng = np.random.default_rng(n + 1)
+    x = _keys(rng, n)
+    p = np.arange(n, dtype=np.int32)
+    k, pay = sort.sort_u64(torch.from_numpy(x).to(dev),
+                           torch.from_numpy(p).to(dev))
+    k, pay = k.cpu().numpy(), pay.cpu().numpy()
+    assert np.array_equal(_u(k), np.sort(_u(x)))
+    assert np.array_equal(np.sort(pay), p)  # a permutation of the input
+    assert np.array_equal(x[pay], k)
+
+
+@pytest.mark.parametrize("la,lb", [(0, 5), (1, 1), (1000, 500), (1500, 500),
+                                   (1 << 16, 3), (40000, 70000)])
+def test_merge_sorted_matches_plain(dev, la, lb):
+    rng = np.random.default_rng(la * 7 + lb)
+    a = np.sort(_u(_keys(rng, la))).view(np.int64)
+    b = np.sort(_u(_keys(rng, lb))).view(np.int64)
+    ca = rng.integers(0, 1 << 30, la).astype(np.int32)
+    cb = rng.integers(0, 1 << 30, lb).astype(np.int32)
+    ta = [torch.from_numpy(v).to(dev) for v in (a, ca, b, cb)]
+    k, c = sort.merge_sorted_u64(*ta)
+    wk, wc = sort.merge_sorted_u64_plain(*[v.cpu() for v in ta])
+    assert torch.equal(k.cpu(), wk)
+    got = sorted(zip(k.cpu().tolist(), c.cpu().tolist()))
+    assert got == sorted(zip(wk.tolist(), wc.tolist()))
+
+
+@pytest.mark.parametrize("n,frac", [(1, 0.0), (1000, 0.5), (1024, 1.0),
+                                    (5000, 0.8), ((1 << 17) + 9, 0.3)])
+def test_compact_matches_plain(dev, n, frac):
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, 1 << 62, n, dtype=np.int64)
+    counts = rng.integers(1, 1 << 30, n).astype(np.int32)
+    holes = rng.random(n) < frac
+    keys[holes] = S
+    tk, tc = torch.from_numpy(keys).to(dev), torch.from_numpy(counts).to(dev)
+    gk, gc = compact.compact_pairs(tk, tc)
+    wk, wc = compact.compact_pairs_plain(tk.cpu(), tc.cpu())
+    assert torch.equal(gk.cpu(), wk) and torch.equal(gc.cpu(), wc)
+
+
+def test_wrappers_reject_wrong_dtype(dev):
+    with pytest.raises(TypeError):
+        sort.sort_u64(torch.zeros(10, dtype=torch.int32, device=dev))
+    with pytest.raises(TypeError):
+        compact.compact_pairs(torch.zeros(10, dtype=torch.int64, device=dev),
+                              torch.zeros(10, dtype=torch.int64, device=dev))
+
+
+def test_cli_cuda_equals_cpu(dev, tmp_path, monkeypatch):
+    """The whole CLI build on the card writes the same bytes as the plain
+    versions on the CPU, and goes through every kernel (run-LSM merges
+    forced by a small raw tier)."""
+    from kmcex_tpu_torch.cli import main
+
+    rng = np.random.default_rng(5)
+    genome = rng.integers(0, 4, 20000)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    fq = tmp_path / "r.fastq"
+    with open(fq, "wb") as f:
+        for i, s in enumerate(rng.integers(0, len(genome) - 100, 6000)):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, acgt[genome[s:s + 100]].tobytes(),
+                                           b"I" * 100))
+    outs = {}
+    for name, d in (("cpu", "cpu"), ("cuda", dev)):
+        wd = tmp_path / name
+        wd.mkdir()
+        kernels.reset_launches()
+        # small batches and raw tier: several collapses, then LSM merges
+        monkeypatch.setenv("KMCEX_BATCH_SEGS", "1024")
+        monkeypatch.setenv("KMCEX_RAW_TIER_ELEMS", "100000")
+        assert main(["kmcex", "-k31", str(fq), str(wd / "o.res"), str(wd)],
+                    device=d) == 0
+        outs[name] = dict(kernels.LAUNCHES)
+        for fn in ("o.res.kmc_pre", "o.res.kmc_suf", "o.res/header",
+                   "o.res/km.bin", "o.res/rest.bin"):
+            outs[name, fn] = (wd / fn).read_bytes()
+    assert all(v == 0 for v in outs["cpu"].values())
+    assert all(v > 0 for v in outs["cuda"].values()), outs["cuda"]
+    for fn in ("o.res.kmc_pre", "o.res.kmc_suf", "o.res/header",
+               "o.res/km.bin", "o.res/rest.bin"):
+        assert outs["cpu", fn] == outs["cuda", fn], fn

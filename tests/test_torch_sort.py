@@ -1,0 +1,99 @@
+"""The port's sort and merge (count/sort.py, CPU = plain PyTorch versions)
+against the JAX package's Pallas bitonic kernels (count/sort_pallas.py) in
+interpret mode with shrunken blocks, on the same numpy-seeded inputs.
+Everything is integer, so keys compare exactly; payloads of equal keys may
+come out in either order (both sorts are unstable), so they compare as a
+multiset of (key, payload) pairs."""
+
+import collections
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kmcex_tpu.count import sort_pallas as sp
+from kmcex_tpu_torch.count import sort
+from kmcex_tpu_torch.native import kernels
+
+S = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+@pytest.fixture(autouse=True)
+def small_blocks(monkeypatch):
+    monkeypatch.setattr(sp, "BLK", 1 << 10)
+    monkeypatch.setattr(sp, "INTERPRET", True)
+
+
+def _t(x: np.ndarray) -> torch.Tensor:
+    """uint64 -> int64 tensor (bit pattern), uint32 -> int32 tensor."""
+    return torch.from_numpy(x.view(np.int64 if x.dtype == np.uint64
+                                   else np.int32).copy())
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    a = t.numpy()
+    return a.view(np.uint64 if a.dtype == np.int64 else np.uint32)
+
+
+def _keys(rng, n, sent_frac=0.1, top_bit=True):
+    x = rng.integers(0, 1 << 63, n, dtype=np.uint64)
+    if top_bit:  # k=32 keys use bit 63
+        x |= rng.integers(0, 2, n, dtype=np.uint64) << np.uint64(63)
+    x[rng.random(n) < sent_frac] = S
+    return x
+
+
+def _multiset(k, p):
+    return collections.Counter(zip(k.tolist(), p.tolist()))
+
+
+@pytest.mark.parametrize("n", [1000, 1 << 10, 3000, (1 << 12) - 7])
+def test_sort_u64_equals_pallas(n):
+    x = _keys(np.random.default_rng(n), n)
+    want = np.asarray(sp.sort_u64(jnp.asarray(x)))[:n]
+    before = dict(kernels.LAUNCHES)
+    got = _np(sort.sort_u64(_t(x)))
+    assert kernels.LAUNCHES == before  # CPU tensors never reach a kernel
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.sort(x))
+    assert got[-1] == S  # SENTINEL sorts last
+
+
+@pytest.mark.parametrize("n", [1000, 3000])
+def test_sort_u64_with_payload_equals_pallas(n):
+    rng = np.random.default_rng(n + 1)
+    x = _keys(rng, n)
+    p = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    wk, wp = sp.sort_u64_with_payload(jnp.asarray(x), jnp.asarray(p))
+    wk, wp = np.asarray(wk)[:n], np.asarray(wp)[:n]
+    gk, gp = sort.sort_u64(_t(x), _t(p))
+    gk, gp = _np(gk), _np(gp)
+    np.testing.assert_array_equal(gk, wk)
+    real = gk != S  # JAX pads with (SENTINEL, 0), which can displace an
+    # input SENTINEL's payload past n; real keys are unaffected
+    assert _multiset(gk[real], gp[real]) == _multiset(wk[real], wp[real])
+    assert _multiset(gk, gp) == _multiset(x, p)
+
+
+@pytest.mark.parametrize("la,lb,pad_a,pad_b", [
+    (1000, 500, 0, 0), (1 << 10, 1 << 10, 0, 0), (3000, 1700, 0, 0),
+    (1, 1, 0, 0), (900, 700, 124, 300), (0, 600, 0, 40),
+])
+def test_merge_sorted_equals_pallas(la, lb, pad_a, pad_b):
+    rng = np.random.default_rng(la * 31 + lb)
+    a = np.concatenate([np.sort(_keys(rng, la, 0.0)), np.full(pad_a, S)])
+    b = np.concatenate([np.sort(_keys(rng, lb, 0.0)), np.full(pad_b, S)])
+    ca = rng.integers(0, 1000, len(a)).astype(np.uint32)
+    cb = rng.integers(0, 1000, len(b)).astype(np.uint32)
+    n = len(a) + len(b)
+    wk, wc = sp.merge_sorted_u64(jnp.asarray(a), jnp.asarray(ca),
+                                 jnp.asarray(b), jnp.asarray(cb))
+    wk, wc = np.asarray(wk)[:n], np.asarray(wc)[:n]
+    gk, gc = sort.merge_sorted_u64(_t(a), _t(ca), _t(b), _t(cb))
+    gk, gc = _np(gk), _np(gc)
+    assert len(gk) == n
+    np.testing.assert_array_equal(gk, wk)
+    np.testing.assert_array_equal(gk, np.sort(np.concatenate([a, b])))
+    real = gk != S
+    assert _multiset(gk[real], gc[real]) == _multiset(wk[real], wc[real])
