@@ -9,13 +9,15 @@ Phases, one line each (any failure exits non-zero):
   2. build: the CUDA kernel library (nvcc, sm_90a) and the native host
      library (g++), from the sources in this checkout;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, exact (integer) equality, with median
-     kernel and plain times from CUDA events;
+     shapes the main path gives it, exact equality (differing elements
+     counted in integers, keys as unsigned 64-bit), with median
+     kernel and plain times from CUDA events (the sort at 64M keys and at
+     the realistic workload's 65,961,984, keys and payloads exact);
   4. the port's CLI build on the realistic-spectrum workload (the seeded
      generator of bench.py: 2M-base genome, 533,000 x 150 bp reads, 0.5%
      errors; k=31 ci=1 cs=1023 nh=7 nb=5): 10,883,515 distinct k-mers, and
      the KMC1 database and the model byte-identical to an independent numpy
-     count fed to the port's host encoder;
+     count fed to the port's host encoder; its peak device memory;
   5. the same on the headline workload (200,000 reads, 0.2% errors) with a
      small raw tier, so the run LSM collapses and merges;
 
@@ -44,6 +46,7 @@ REALISTIC_DISTINCT = 10_883_515
 # phase-3 shapes: the default raw tier's collapse size, and two runs of the
 # run LSM at the headline workload's merge size
 SORT_N = 64 << 20
+SORT_SIZES = (SORT_N, 65_961_984)  # + the realistic workload's collapse
 MERGE_RUN = 16 << 20
 SENT = -1
 FILES = ["o.res.kmc_pre", "o.res.kmc_suf", "o.res/header", "o.res/km.bin",
@@ -133,14 +136,26 @@ def timed(fn, reps: int = 5):
     return res, float(np.median(times))
 
 
-def max_abs_err(pairs) -> float:
-    err = 0.0
+def compare_exact(pairs) -> tuple[int, int]:
+    """(elements that differ, largest absolute difference) over integer
+    (got, want) tensor pairs, both counted in integers: int64 keys as
+    unsigned 64-bit, int32 payloads as int64, so no low bit is lost."""
+    bad, err = 0, 0
     for got, want in pairs:
-        if got.shape != want.shape:
-            raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
-        if got.numel():
-            err = max(err, float((got.double() - want.double()).abs().max()))
-    return err
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{got.dtype}{tuple(got.shape)} != "
+                                 f"{want.dtype}{tuple(want.shape)}")
+        differ = got != want
+        n_bad = int(differ.sum())
+        if n_bad:
+            g, w = got[differ].cpu().numpy(), want[differ].cpu().numpy()
+            if g.dtype == np.int64:
+                g, w = g.view(np.uint64), w.view(np.uint64)
+            else:
+                g, w = g.astype(np.int64), w.astype(np.int64)
+            bad += n_bad
+            err = max(err, int(np.where(g > w, g - w, w - g).max()))
+    return bad, err
 
 
 def phase_kernels(dev):
@@ -152,30 +167,43 @@ def phase_kernels(dev):
     rng = np.random.default_rng(2024)
     out = {}
 
-    # sort_u64: 64M keys (the raw tier's collapse size), ~10% SENTINEL,
-    # half with bit 63 set (k = 32 keys)
-    n = SORT_N
-    x_np = rng.integers(0, 1 << 63, n, dtype=np.int64)
-    x_np[rng.random(n) < 0.5] |= BIAS
-    x_np[rng.random(n) < 0.1] = SENT
-    x = torch.from_numpy(x_np).to(dev)
-    del x_np
-    got, ms = timed(lambda: sort.sort_u64(x))
-    want, plain_ms = timed(lambda: sort.sort_u64_plain(x))
-    err = max_abs_err([(got, want)])
-    p = torch.arange(n, dtype=torch.int32, device=dev)
-    (gk, gp), ms_p = timed(lambda: sort.sort_u64(x, p))
-    (wk, _), plain_ms_p = timed(lambda: sort.sort_u64_plain(x, p))
-    err = max(err, max_abs_err([(gk, wk), (x[gp.long()], gk)]))
-    if not bool((torch.bincount(gp.long(), minlength=n) == 1).all()):
-        raise AssertionError("sort_u64 payload is not a permutation")
-    if err:
-        raise AssertionError(f"sort_u64 disagrees with its plain version: {err}")
-    print(f"[kernels] sort_u64 n={n}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms;"
-          f" with int32 payload: kernel {ms_p:.3f} ms, plain {plain_ms_p:.3f} ms;"
-          f" exact")
-    out["sort_u64"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    del x, got, want, p, gk, gp, wk
+    # sort_u64: 64M keys (the raw tier's collapse size) and the realistic
+    # workload's single collapse (not a power of two); ~10% SENTINEL, half
+    # with bit 63 set (k = 32 keys).  Both sorts are stable, so keys AND
+    # payloads (input positions) must be equal.
+    rows = {}
+    for n in SORT_SIZES:
+        x_np = rng.integers(0, 1 << 63, n, dtype=np.int64)
+        x_np[rng.random(n) < 0.5] |= BIAS
+        x_np[rng.random(n) < 0.1] = SENT
+        x = torch.from_numpy(x_np).to(dev)
+        del x_np
+        got, ms = timed(lambda: sort.sort_u64(x))
+        want, plain_ms = timed(lambda: sort.sort_u64_plain(x))
+        p = torch.arange(n, dtype=torch.int32, device=dev)
+        (gk, gp), ms_p = timed(lambda: sort.sort_u64(x, p))
+        (wk, wp), plain_ms_p = timed(lambda: sort.sort_u64_plain(x, p))
+        # every payload is its key's input position: x[gp] must be gk
+        bad, err = compare_exact([(got, want), (gk, wk), (gp, wp),
+                                  (x[gp.long()], gk)])
+        if bad:
+            raise AssertionError(f"sort_u64 n={n} disagrees with its plain "
+                                 f"version: {bad} elements differ, max abs "
+                                 f"err {err}")
+        print(f"[kernels] sort_u64 n={n}: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms; with int32 payload: kernel {ms_p:.3f} ms, "
+              f"plain {plain_ms_p:.3f} ms; keys and payloads exact (0 "
+              f"elements differ)")
+        rows[n] = dict(mismatches=bad, max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, payload_ms=ms_p,
+                       payload_plain_ms=plain_ms_p)
+        del x, got, want, p, gk, gp, wk, wp
+    # the JSON row: the 64M times, plus the realistic collapse's beside them
+    real_n = SORT_SIZES[1]
+    out["sort_u64"] = dict(rows[SORT_N], n=SORT_N, **{
+        f"{k_}_n{real_n}": v for k_, v in rows[real_n].items()
+        if k_.endswith("ms")})
+    torch.cuda.empty_cache()
 
     # merge_sorted_u64: two SENTINEL-padded 16M runs (run-LSM shape), then
     # two runs of < 2048 keys in total (the one-block case)
@@ -189,26 +217,30 @@ def phase_kernels(dev):
         c[real:] = 0
         return k, c
 
-    errs, times = [], {}
+    pairs, times = [], {}
     for label, (la, lb) in (("16M+16M", (MERGE_RUN, MERGE_RUN)),
                             ("700+1100", (700, 1100))):
         a, ca = run(la, 0.85)
         b, cb = run(lb, 0.7)
         (gk, gc), t = timed(lambda: sort.merge_sorted_u64(a, ca, b, cb))
         (wk, wc), tp = timed(lambda: sort.merge_sorted_u64_plain(a, ca, b, cb))
-        errs.append(max_abs_err([(gk, wk), (gc, wc)]))
+        pairs += [(gk, wk), (gc, wc)]
         times[label] = (t, tp)
-    if max(errs):
-        raise AssertionError(f"merge_sorted_u64 disagrees: {errs}")
+    bad, err = compare_exact(pairs)
+    if bad:
+        raise AssertionError(f"merge_sorted_u64 disagrees: {bad} elements "
+                             f"differ, max abs err {err}")
     (ms, plain_ms), (ms1, plain_ms1) = times["16M+16M"], times["700+1100"]
     print(f"[kernels] merge_sorted_u64 16M+16M padded: kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms; 700+1100: kernel {ms1:.3f} ms, plain "
-          f"{plain_ms1:.3f} ms; exact")
-    out["merge_sorted_u64"] = dict(max_abs_err=max(errs), ms=ms,
+          f"{plain_ms1:.3f} ms; exact (0 elements differ)")
+    out["merge_sorted_u64"] = dict(mismatches=bad, max_abs_err=err, ms=ms,
                                    plain_ms=plain_ms)
+    del pairs, a, ca, b, cb, gk, gc, wk, wc
 
     # compact_pairs: 64M (key, count) pairs, ~80% holes (segment-count shape:
     # ascending keys, duplicate slots holed)
+    n = SORT_N
     keys = sort.sort_u64_plain(torch.from_numpy(
         rng.integers(0, 1 << 62, n, dtype=np.int64)).to(dev))
     holes = torch.from_numpy(rng.random(n) < 0.8).to(dev)
@@ -217,12 +249,14 @@ def phase_kernels(dev):
     cnt[holes] = 0
     (gk, gc), ms = timed(lambda: compact.compact_pairs(keys, cnt))
     (wk, wc), plain_ms = timed(lambda: compact.compact_pairs_plain(keys, cnt))
-    err = max_abs_err([(gk, wk), (gc, wc)])
-    if err:
-        raise AssertionError(f"compact_pairs disagrees: {err}")
+    bad, err = compare_exact([(gk, wk), (gc, wc)])
+    if bad:
+        raise AssertionError(f"compact_pairs disagrees: {bad} elements "
+                             f"differ, max abs err {err}")
     print(f"[kernels] compact_pairs n={n} 80% holes: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms; exact")
-    out["compact_pairs"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+          f"plain {plain_ms:.3f} ms; exact (0 elements differ)")
+    out["compact_pairs"] = dict(mismatches=bad, max_abs_err=err, ms=ms,
+                                plain_ms=plain_ms)
     del keys, holes, cnt, gk, gc, wk, wc
     torch.cuda.empty_cache()
     return out
@@ -311,10 +345,12 @@ def main() -> int:
     build_dir.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="smoke_", dir=build_dir) as tmp:
         work = pathlib.Path(tmp)
-        kernels.reset_launches()  # the main path's run starts here
         reads = make_reads(2_000_000, 533_000, 4242, 0.005)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()  # the main path's run starts here
         distinct, st = run_cli(work, "realistic", reads)
         l4 = dict(kernels.LAUNCHES)
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
         if distinct != REALISTIC_DISTINCT:
             raise AssertionError(f"realistic: {distinct} distinct k-mers, "
                                  f"expected {REALISTIC_DISTINCT}")
@@ -324,8 +360,8 @@ def main() -> int:
         print(f"[realistic] reads {st['reads']}, distinct {distinct}, count "
               f"{st['count_seconds']:.3f} s, encode {st['encode_seconds']:.3f} s, "
               f"{st['reads'] / secs / 1e6:.4f} Mreads/s, launches {l4}, "
-              f"tiers {st['tiers']}; DB and model byte-identical to the "
-              f"numpy oracle")
+              f"tiers {st['tiers']}, peak device memory {peak_mb:.1f} MB; DB "
+              f"and model byte-identical to the numpy oracle")
         del reads
 
         reads = make_reads(2_000_000, 200_000, 12345, 0.002)

@@ -3,13 +3,15 @@
 The counterpart of the JAX package's ``count/sort_pallas.py``.  Keys are
 ``int64`` tensors holding the raw uint64 bit pattern (SENTINEL
 ``0xFFFF_FFFF_FFFF_FFFF`` is ``-1``); payloads are ``int32``.  Order is
-always UNSIGNED, so SENTINEL sorts last.
+always UNSIGNED, so SENTINEL sorts last, and always stable.
 
 * ``sort_u64(keys[, payload])`` — the K1 + K2 contract
   (``_block_sort`` / ``_hbm_step`` over ``_merge_tree``), kernel in
-  ``csrc/sort.cu``.
+  ``csrc/sort.cu`` (one-sweep LSD radix sort).  Equal keys keep their input
+  order.
 * ``merge_sorted_u64(a, ca, b, cb)`` — the K2-with-``asc_override`` and K3
-  (``_bitonic_finish_single``) contract, kernel in ``csrc/merge.cu``.
+  (``_bitonic_finish_single``) contract, kernel in ``csrc/merge.cu``.  On
+  equal keys, ``a``'s entries come first.
 
 A CPU tensor goes to the plain PyTorch version (``*_plain``); a CUDA tensor
 goes to the kernel, or the wrapper raises.  Unlike the TPU entry points the
@@ -23,18 +25,14 @@ import torch
 from kmcex_tpu_torch.core.codec import BIAS
 from kmcex_tpu_torch.native import kernels
 
-SENTINEL = -1
-_TILE = 2048  # csrc/sort.cu tile: the padded length is a power of two >= it
-
-
-def _next_pow2(n: int) -> int:
-    return 1 << max(0, (n - 1).bit_length())
+# csrc/sort.cu status words hold a 30-bit count
+MAX_SORT_N = 1 << 30
 
 
 def sort_u64_plain(keys: torch.Tensor, payload: torch.Tensor | None = None):
-    """``torch.sort`` on the biased keys; the payload follows by the
-    returned indices (ties unstable)."""
-    vals, idx = torch.sort(keys ^ BIAS)
+    """Stable ``torch.sort`` on the biased keys; the payload follows by the
+    returned indices, equal keys in input order."""
+    vals, idx = torch.sort(keys ^ BIAS, stable=True)
     out = vals ^ BIAS
     if payload is None:
         return out
@@ -42,7 +40,8 @@ def sort_u64_plain(keys: torch.Tensor, payload: torch.Tensor | None = None):
 
 
 def merge_sorted_u64_plain(a, ca, b, cb):
-    """Concatenate + sort (ties unstable)."""
+    """Concatenate + stable sort: on equal keys ``a``'s entries come first,
+    as in the kernel."""
     return sort_u64_plain(torch.cat([a, b]), torch.cat([ca, cb]))
 
 
@@ -50,9 +49,16 @@ def _is_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
+def _check_sort_n(n: int) -> None:
+    if n >= MAX_SORT_N:
+        raise ValueError(f"sort_u64 takes fewer than {MAX_SORT_N} keys on the "
+                         f"card, got {n}")
+
+
 def sort_u64(keys: torch.Tensor, payload: torch.Tensor | None = None):
-    """Ascending unsigned sort of int64 keys, with an optional int32 payload
-    that follows its key.  Returns keys, or (keys, payload)."""
+    """Stable ascending unsigned sort of int64 keys, with an optional int32
+    payload that follows its key.  Returns keys, or (keys, payload), in new
+    tensors; the inputs are not written.  On the card n < ``MAX_SORT_N``."""
     ts = (keys,) if payload is None else (keys, payload)
     if _is_cpu(*ts):
         return sort_u64_plain(keys, payload)
@@ -64,27 +70,30 @@ def sort_u64(keys: torch.Tensor, payload: torch.Tensor | None = None):
     if keys.dim() != 1:
         raise ValueError("keys must be 1-D")
     n = keys.numel()
+    _check_sort_n(n)
     if n == 0:
         return keys.clone() if payload is None else (keys.clone(),
                                                      payload.clone())
     lib = kernels.lib()
-    N = max(_TILE, _next_pow2(n))
-    buf = torch.empty(N, dtype=torch.int64, device=keys.device)
-    buf[:n].copy_(keys)
-    buf[n:].fill_(SENTINEL)
-    pbuf = None
+    dev = keys.device
+    # ping-pong scratch: eight radix passes end in the second buffer
+    ka = torch.empty(n, dtype=torch.int64, device=dev)
+    kb = torch.empty(n, dtype=torch.int64, device=dev)
+    pa = pb = None
     if payload is not None:
-        pbuf = torch.empty(N, dtype=torch.int32, device=keys.device)
-        pbuf[:n].copy_(payload)
-        pbuf[n:].fill_(-1)  # (SENTINEL, 0xFFFFFFFF) sorts behind any input
-    rc = lib.kx_sort_u64(buf.data_ptr(),
-                         None if pbuf is None else pbuf.data_ptr(), N,
-                         kernels.stream_ptr(buf))
+        pa = torch.empty(n, dtype=torch.int32, device=dev)
+        pb = torch.empty(n, dtype=torch.int32, device=dev)
+    ws = torch.empty(lib.kx_sort_workspace_bytes(n), dtype=torch.uint8,
+                     device=dev)
+    rc = lib.kx_sort_u64(keys.data_ptr(),
+                         None if payload is None else payload.data_ptr(), n,
+                         ka.data_ptr(), kb.data_ptr(),
+                         None if pa is None else pa.data_ptr(),
+                         None if pb is None else pb.data_ptr(), ws.data_ptr(),
+                         kernels.stream_ptr(keys))
     kernels.check(rc, "kx_sort_u64")
     kernels.LAUNCHES["sort_u64"] += 1
-    if pbuf is None:
-        return buf[:n]
-    return buf[:n], pbuf[:n]
+    return kb if payload is None else (kb, pb)
 
 
 def merge_sorted_u64(a: torch.Tensor, ca: torch.Tensor, b: torch.Tensor,

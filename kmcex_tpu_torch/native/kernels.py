@@ -44,7 +44,9 @@ def lib() -> ctypes.CDLL:
 def _declare(L: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     L.kx_sort_u64.restype = i32
-    L.kx_sort_u64.argtypes = [p, p, i64, p]
+    L.kx_sort_u64.argtypes = [p, p, i64, p, p, p, p, p, p]
+    L.kx_sort_workspace_bytes.restype = i64
+    L.kx_sort_workspace_bytes.argtypes = [i64]
     L.kx_merge_u64.restype = i32
     L.kx_merge_u64.argtypes = [p, p, i64, p, p, i64, p, p, p]
     L.kx_compact_count.restype = i32

@@ -38,20 +38,6 @@ def _u(x: np.ndarray) -> np.ndarray:
     return x.view(np.uint64)
 
 
-@pytest.mark.parametrize("n", [1, 1000, 2048, 5000, 1 << 16, (1 << 17) + 3])
-def test_sort_u64_matches_plain(dev, n):
-    rng = np.random.default_rng(n)
-    x = _keys(rng, n)
-    t = torch.from_numpy(x).to(dev)
-    before = kernels.LAUNCHES["sort_u64"]
-    got = sort.sort_u64(t)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["sort_u64"] == before + 1
-    want = sort.sort_u64_plain(t.cpu())
-    assert torch.equal(got.cpu(), want)
-    assert np.array_equal(_u(got.cpu().numpy()), np.sort(_u(x)))
-
-
 @pytest.mark.parametrize("n", [1000, 4096, (1 << 16) + 5])
 def test_sort_u64_payload_follows_key(dev, n):
     rng = np.random.default_rng(n + 1)
@@ -63,6 +49,83 @@ def test_sort_u64_payload_follows_key(dev, n):
     assert np.array_equal(_u(k), np.sort(_u(x)))
     assert np.array_equal(np.sort(pay), p)  # a permutation of the input
     assert np.array_equal(x[pay], k)
+
+
+# keys per onesweep_pass tile: THREADS * ITEMS = TILE in csrc/sort.cu
+SORT_TILE = 256 * 16
+
+
+def _check_sort_exact(dev, x: np.ndarray):
+    """sort_u64 on the card, with and without an int32 payload of input
+    positions, equals the stable plain version exactly and numpy's stable
+    argsort; the inputs are left as they were."""
+    n = len(x)
+    t = torch.from_numpy(x).to(dev)
+    p = torch.arange(n, dtype=torch.int32, device=dev)
+    t0, p0 = t.clone(), p.clone()
+    got = sort.sort_u64(t)
+    gk, gp = sort.sort_u64(t, p)
+    torch.cuda.synchronize()
+    assert torch.equal(t, t0) and torch.equal(p, p0)
+    wk, wp = sort.sort_u64_plain(t.cpu(), p.cpu())
+    assert torch.equal(got.cpu(), wk)
+    assert torch.equal(gk.cpu(), wk) and torch.equal(gp.cpu(), wp)
+    order = np.argsort(_u(x), kind="stable")
+    assert np.array_equal(gp.cpu().numpy(), order.astype(np.int32))
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, SORT_TILE - 1, SORT_TILE,
+                               SORT_TILE + 1, 1000, 2048, 5000, 1 << 16,
+                               (1 << 17) + 3, (1 << 20) + 7, 5 << 20])
+def test_sort_u64_matches_plain(dev, n):
+    rng = np.random.default_rng(n)
+    x = _keys(rng, n)
+    x[rng.random(n) < 0.3] = x[0] if n else 0  # runs of equal keys
+    before = kernels.LAUNCHES["sort_u64"]
+    _check_sort_exact(dev, x)
+    assert kernels.LAUNCHES["sort_u64"] == before + (2 if n else 0)
+
+
+def _pattern(name: str, n: int, rng) -> np.ndarray:
+    r = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    if name == "all_equal":
+        return np.full(n, 0x0123456789ABCDEF, np.int64)
+    if name == "all_sentinel":
+        return np.full(n, S, np.int64)
+    if name == "bit63_only":
+        return np.where(r < 0, np.int64(-(1 << 63)), np.int64(5))
+    if name == "low_byte_only":
+        return (r & 0xFF) | 0x7700000000000000
+    if name == "high_byte_only":
+        return (r & -(1 << 56)) | 0x42
+    if name == "sorted":
+        return np.sort(_u(r)).view(np.int64)
+    if name == "reverse_sorted":
+        return np.sort(_u(r))[::-1].view(np.int64).copy()
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("name", ["all_equal", "all_sentinel", "bit63_only",
+                                  "low_byte_only", "high_byte_only", "sorted",
+                                  "reverse_sorted"])
+def test_sort_u64_patterns(dev, name):
+    """Inputs where an unstable rank or a wrong digit shows: keys that
+    differ in one byte only, all equal, already in order or reversed."""
+    n = 3 * (1 << 16) + 5
+    _check_sort_exact(dev, _pattern(name, n, np.random.default_rng(3)))
+
+
+def test_sort_u64_rejects_too_many_keys(dev):
+    """n >= 2^30 is refused by the wrapper's size check and by the C entry
+    point, which returns before it touches a pointer (no 8 GiB tensor is
+    needed to reach either)."""
+    with pytest.raises(ValueError):
+        sort._check_sort_n(sort.MAX_SORT_N)
+    sort._check_sort_n(sort.MAX_SORT_N - 1)
+    lib = kernels.lib()
+    for n in (sort.MAX_SORT_N, 0):
+        assert lib.kx_sort_u64(None, None, n, None, None, None, None, None,
+                               None) != 0
 
 
 @pytest.mark.parametrize("la,lb", [(0, 5), (1, 1), (1000, 500), (1500, 500),

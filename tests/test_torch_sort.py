@@ -1,9 +1,10 @@
 """The port's sort and merge (count/sort.py, CPU = plain PyTorch versions)
 against the JAX package's Pallas bitonic kernels (count/sort_pallas.py) in
 interpret mode with shrunken blocks, on the same numpy-seeded inputs.
-Everything is integer, so keys compare exactly; payloads of equal keys may
-come out in either order (both sorts are unstable), so they compare as a
-multiset of (key, payload) pairs."""
+Everything is integer, so keys compare exactly.  The Pallas sorts are not
+stable, so payloads compare with them as a multiset of (key, payload) pairs;
+the port's sorts are stable, which the last tests check against numpy's
+stable argsort."""
 
 import collections
 
@@ -97,3 +98,49 @@ def test_merge_sorted_equals_pallas(la, lb, pad_a, pad_b):
     np.testing.assert_array_equal(gk, np.sort(np.concatenate([a, b])))
     real = gk != S
     assert _multiset(gk[real], gc[real]) == _multiset(wk[real], wc[real])
+
+
+@pytest.mark.parametrize("n,distinct", [(1, 1), (1000, 1000), (3000, 7),
+                                        ((1 << 12) + 1, 3), (5000, 1)])
+def test_sort_u64_plain_is_stable(n, distinct):
+    """Equal keys keep their input order: the payload (input positions)
+    comes out as numpy's stable argsort of the unsigned keys."""
+    rng = np.random.default_rng(n * 13 + distinct)
+    x = rng.choice(_keys(rng, distinct), n)  # heavy duplicates
+    p = np.arange(n, dtype=np.uint32)
+    gk, gp = sort.sort_u64(_t(x), _t(p))
+    order = np.argsort(x, kind="stable")
+    np.testing.assert_array_equal(_np(gk), x[order])
+    np.testing.assert_array_equal(_np(gp), order.astype(np.uint32))
+
+
+@pytest.mark.parametrize("la,lb,pad", [(500, 700, 0), (1000, 1000, 50),
+                                       (1, 3000, 10)])
+def test_merge_plain_ties_take_a_first(la, lb, pad):
+    """On equal keys (SENTINEL padding included) every entry of ``a`` comes
+    before every entry of ``b``, as in csrc/merge.cu."""
+    rng = np.random.default_rng(la + lb + pad)
+    pool = _keys(rng, 20, 0.0)
+    a = np.concatenate([np.sort(rng.choice(pool, la)), np.full(pad, S)])
+    b = np.concatenate([np.sort(rng.choice(pool, lb)), np.full(pad, S)])
+    ca = np.arange(len(a), dtype=np.uint32)  # a's payloads < b's
+    cb = np.arange(len(a), len(a) + len(b), dtype=np.uint32)
+    gk, gc = sort.merge_sorted_u64(_t(a), _t(ca), _t(b), _t(cb))
+    gk, gc = _np(gk), _np(gc)
+    allk = np.concatenate([a, b])
+    order = np.argsort(allk, kind="stable")
+    np.testing.assert_array_equal(gk, allk[order])
+    np.testing.assert_array_equal(gc, order.astype(np.uint32))
+
+
+@pytest.mark.parametrize("n,ok", [(0, True), ((1 << 30) - 1, True),
+                                  (1 << 30, False), (1 << 33, False)])
+def test_sort_u64_size_limit(n, ok):
+    """The card's sort takes fewer than 2^30 keys (a status word of
+    csrc/sort.cu holds a 30-bit count); the wrapper refuses more."""
+    assert sort.MAX_SORT_N == 1 << 30
+    if ok:
+        sort._check_sort_n(n)
+    else:
+        with pytest.raises(ValueError):
+            sort._check_sort_n(n)
