@@ -12,7 +12,12 @@ Phases, one line each (any failure exits non-zero):
      shapes the main path gives it, exact equality (differing elements
      counted in integers, keys as unsigned 64-bit), with median
      kernel and plain times from CUDA events (the sort at 64M keys and at
-     the realistic workload's 65,961,984, keys and payloads exact);
+     the realistic workload's 65,961,984, keys and payloads exact; the
+     merge at 16M + 16M, 700 + 1100, 64M + 4M and a tie-heavy 4M + 4M pair
+     whose payloads show the order of equal keys; the run LSM's whole merge
+     step, ``_merge_runs``, at 16M + 16M beside the merge kernel), each
+     beside its bound: the bytes it must move at the card's 3.35 TB/s or
+     its operations at 67 T/s, whichever takes longer;
   4. the port's CLI build on the realistic-spectrum workload (the seeded
      generator of bench.py: 2M-base genome, 533,000 x 150 bp reads, 0.5%
      errors; k=31 ci=1 cs=1023 nh=7 nb=5): 10,883,515 distinct k-mers, and
@@ -49,6 +54,10 @@ SORT_N = 64 << 20
 SORT_SIZES = (SORT_N, 65_961_984)  # + the realistic workload's collapse
 MERGE_RUN = 16 << 20
 SENT = -1
+# published peaks of one H100 SXM: device memory, and float32 outside the
+# tensor cores (the nearest listed rate for the kernels' integer compares)
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
 FILES = ["o.res.kmc_pre", "o.res.kmc_suf", "o.res/header", "o.res/km.bin",
          "o.res/rest.bin"]
 
@@ -136,6 +145,31 @@ def timed(fn, reps: int = 5):
     return res, float(np.median(times))
 
 
+def top_device_ops(fn, k: int = 3):
+    """The k kernels with the most device time in one call of ``fn``, from
+    torch.profiler: [(name, ms, launches)]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count)
+            for e in prof.key_averages()]
+    rows.sort(key=lambda r: -r[1])
+    return [(name[:48], ms, count) for name, ms, count in rows[:k]]
+
+
+def bound(n_bytes: int, n_ops: int) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the memory rate, or the operations at
+    the peak rate, whichever is larger."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_OPS_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def compare_exact(pairs) -> tuple[int, int]:
     """(elements that differ, largest absolute difference) over integer
     (got, want) tensor pairs, both counted in integers: int64 keys as
@@ -162,7 +196,8 @@ def phase_kernels(dev):
     import torch
 
     from kmcex_tpu_torch.core.codec import BIAS
-    from kmcex_tpu_torch.count import compact, sort
+    from kmcex_tpu_torch.count import compact, device_lsm, sort
+    from kmcex_tpu_torch.tools.tune_merge import padded_run, tie_run
 
     rng = np.random.default_rng(2024)
     out = {}
@@ -180,6 +215,7 @@ def phase_kernels(dev):
         del x_np
         got, ms = timed(lambda: sort.sort_u64(x))
         want, plain_ms = timed(lambda: sort.sort_u64_plain(x))
+        _, lib_ms = timed(lambda: torch.sort(x, stable=True))  # yardstick only
         p = torch.arange(n, dtype=torch.int32, device=dev)
         (gk, gp), ms_p = timed(lambda: sort.sort_u64(x, p))
         (wk, wp), plain_ms_p = timed(lambda: sort.sort_u64_plain(x, p))
@@ -194,9 +230,14 @@ def phase_kernels(dev):
               f"{plain_ms:.3f} ms; with int32 payload: kernel {ms_p:.3f} ms, "
               f"plain {plain_ms_p:.3f} ms; keys and payloads exact (0 "
               f"elements differ)")
+        # n log2 n key comparisons; keys in and out, 8 bytes each way (12
+        # with the payload)
+        ops = int(n * np.log2(n))
         rows[n] = dict(mismatches=bad, max_abs_err=err, ms=ms,
-                       plain_ms=plain_ms, payload_ms=ms_p,
-                       payload_plain_ms=plain_ms_p)
+                       plain_ms=plain_ms, library_ms=lib_ms,
+                       payload_ms=ms_p, payload_plain_ms=plain_ms_p,
+                       payload_bound_ms=bound(24 * n, ops)["bound_ms"],
+                       **bound(16 * n, ops))
         del x, got, want, p, gk, gp, wk, wp
     # the JSON row: the 64M times, plus the realistic collapse's beside them
     real_n = SORT_SIZES[1]
@@ -205,38 +246,54 @@ def phase_kernels(dev):
         if k_.endswith("ms")})
     torch.cuda.empty_cache()
 
-    # merge_sorted_u64: two SENTINEL-padded 16M runs (run-LSM shape), then
-    # two runs of < 2048 keys in total (the one-block case)
-    def run(m, fill):
-        k = torch.from_numpy(rng.integers(0, 1 << 63, m, dtype=np.int64)
-                             | np.where(rng.random(m) < 0.5, BIAS, 0)).to(dev)
-        k = sort.sort_u64_plain(k)
-        real = int(m * fill)
-        k[real:] = SENT
-        c = torch.from_numpy(rng.integers(1, 1 << 20, m).astype(np.int32)).to(dev)
-        c[real:] = 0
-        return k, c
+    # merge_sorted_u64: two SENTINEL-padded 16M runs (run-LSM shape), two
+    # runs of < 2048 keys in total (the one-block case), a large run against
+    # a fresh one, and a tie-heavy pair: keys from 2^16 values, payload = a
+    # unique index, so keys AND payloads must equal the stable plain version
+    main_shape = "16M+16M"
+    def pair(la, lb):
+        return (lambda: (padded_run(rng, la, 0.85, dev),
+                         padded_run(rng, lb, 0.7, dev)))
 
-    pairs, times = [], {}
-    for label, (la, lb) in (("16M+16M", (MERGE_RUN, MERGE_RUN)),
-                            ("700+1100", (700, 1100))):
-        a, ca = run(la, 0.85)
-        b, cb = run(lb, 0.7)
+    shapes = ((main_shape, pair(MERGE_RUN, MERGE_RUN)),
+              ("700+1100", pair(700, 1100)),
+              ("64M+4M", pair(64 << 20, 4 << 20)),
+              ("ties4M+4M", lambda: (tie_run(rng, 4 << 20, 0, dev),
+                                     tie_run(rng, 4 << 20, 4 << 20, dev))))
+    row, said = dict(mismatches=0, max_abs_err=0, library_ms=None), []
+    for label, make in shapes:
+        (a, ca), (b, cb) = make()
         (gk, gc), t = timed(lambda: sort.merge_sorted_u64(a, ca, b, cb))
         (wk, wc), tp = timed(lambda: sort.merge_sorted_u64_plain(a, ca, b, cb))
-        pairs += [(gk, wk), (gc, wc)]
-        times[label] = (t, tp)
-    bad, err = compare_exact(pairs)
-    if bad:
-        raise AssertionError(f"merge_sorted_u64 disagrees: {bad} elements "
-                             f"differ, max abs err {err}")
-    (ms, plain_ms), (ms1, plain_ms1) = times["16M+16M"], times["700+1100"]
-    print(f"[kernels] merge_sorted_u64 16M+16M padded: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms; 700+1100: kernel {ms1:.3f} ms, plain "
-          f"{plain_ms1:.3f} ms; exact (0 elements differ)")
-    out["merge_sorted_u64"] = dict(mismatches=bad, max_abs_err=err, ms=ms,
-                                   plain_ms=plain_ms)
-    del pairs, a, ca, b, cb, gk, gc, wk, wc
+        bad, err = compare_exact([(gk, wk), (gc, wc)])
+        if bad:
+            raise AssertionError(f"merge_sorted_u64 {label} disagrees: {bad} "
+                                 f"elements differ, max abs err {err}")
+        n = a.numel() + b.numel()
+        bnd = bound(24 * n, n)  # one comparison and 12 bytes in + out each
+        said.append(f"{label}: kernel {t:.3f} ms, plain {tp:.3f} ms, bound "
+                    f"{bnd['bound_ms']:.3f} ms")
+        if label == main_shape:
+            # the run LSM's whole merge step: this kernel, ~15 torch ops
+            # (segment sums), compact_pairs
+            _, t_runs = timed(lambda: device_lsm._merge_runs(a, ca, b, cb))
+            top = top_device_ops(
+                lambda: device_lsm._merge_runs(a, ca, b, cb))
+            row.update(ms=t, plain_ms=tp, merge_runs_ms=t_runs,
+                       merge_runs_top_ops=top, **bnd)
+        else:
+            row.update({f"ms_{label}": t, f"plain_ms_{label}": tp,
+                        f"bound_ms_{label}": bnd["bound_ms"]})
+        del a, ca, b, cb, gk, gc, wk, wc
+    print(f"[kernels] merge_sorted_u64 {'; '.join(said)}; keys "
+          f"and payloads exact (0 elements differ)")
+    print(f"[kernels] _merge_runs {main_shape} whole (merge kernel + segment "
+          f"sums in torch + compact_pairs): {row['merge_runs_ms']:.3f} ms, of "
+          f"which the merge kernel {row['ms']:.3f} ms; most device time: "
+          + ", ".join(f"{name} {ms:.3f} ms x{count}"
+                      for name, ms, count in row["merge_runs_top_ops"]))
+    out["merge_sorted_u64"] = row
+    torch.cuda.empty_cache()
 
     # compact_pairs: 64M (key, count) pairs, ~80% holes (segment-count shape:
     # ascending keys, duplicate slots holed)
@@ -255,8 +312,10 @@ def phase_kernels(dev):
                              f"differ, max abs err {err}")
     print(f"[kernels] compact_pairs n={n} 80% holes: kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms; exact (0 elements differ)")
+    # one predicate an element; 12 bytes in and 12 out
     out["compact_pairs"] = dict(mismatches=bad, max_abs_err=err, ms=ms,
-                                plain_ms=plain_ms)
+                                plain_ms=plain_ms, library_ms=None,
+                                **bound(24 * n, n))
     del keys, holes, cnt, gk, gc, wk, wc
     torch.cuda.empty_cache()
     return out
@@ -365,9 +424,10 @@ def main() -> int:
         del reads
 
         reads = make_reads(2_000_000, 200_000, 12345, 0.002)
+        kernels.reset_launches()  # the run-LSM path's run starts here
         distinct, st = run_cli(work, "headline", reads,
                                {"KMCEX_RAW_TIER_ELEMS": "8388608"})
-        l5 = {k_: v - l4[k_] for k_, v in kernels.LAUNCHES.items()}
+        l5 = dict(kernels.LAUNCHES)
         if not all(v > 0 for v in l5.values()):
             raise AssertionError(f"run-LSM run skipped a kernel: {l5}")
         secs = st["count_seconds"] + st["encode_seconds"]
@@ -376,8 +436,6 @@ def main() -> int:
               f"{st['reads'] / secs / 1e6:.4f} Mreads/s, launches {l5}, "
               f"tiers {st['tiers']}; DB and model byte-identical to the "
               f"numpy oracle")
-    launches = dict(kernels.LAUNCHES)
-
     src = {"sort_u64": ("kmcex_tpu_torch/csrc/sort.cu",
                         "kmcex_tpu/count/sort_pallas.py:203",
                         ["kmcex_tpu/count/sort_pallas.py:266"]),
@@ -390,7 +448,9 @@ def main() -> int:
     for name, (path, repl, also) in src.items():
         rows.append({"name": name, "route": "cuda", "source": path,
                      "replaces": repl, "also_replaces": also,
-                     "launches": launches[name], **bench[name]})
+                     "launches": l4[name] + l5[name],
+                     "launches_realistic": l4[name],
+                     "launches_run_lsm": l5[name], **bench[name]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,9 @@ always UNSIGNED, so SENTINEL sorts last, and always stable.
   ``csrc/sort.cu`` (one-sweep LSD radix sort).  Equal keys keep their input
   order.
 * ``merge_sorted_u64(a, ca, b, cb)`` — the K2-with-``asc_override`` and K3
-  (``_bitonic_finish_single``) contract, kernel in ``csrc/merge.cu``.  On
-  equal keys, ``a``'s entries come first.
+  (``_bitonic_finish_single``) contract, kernel in ``csrc/merge.cu`` (a
+  tiled merge path through shared memory).  On equal keys, ``a``'s entries
+  come first.
 
 A CPU tensor goes to the plain PyTorch version (``*_plain``); a CUDA tensor
 goes to the kernel, or the wrapper raises.  Unlike the TPU entry points the
@@ -99,8 +100,9 @@ def sort_u64(keys: torch.Tensor, payload: torch.Tensor | None = None):
 def merge_sorted_u64(a: torch.Tensor, ca: torch.Tensor, b: torch.Tensor,
                      cb: torch.Tensor):
     """Merge two ascending (int64 key, int32 payload) runs into one ascending
-    run of length len(a) + len(b).  Any run lengths; SENTINEL-padded runs
-    merge their padding to the tail."""
+    run of length len(a) + len(b), in new tensors; the inputs are not
+    written.  Unsigned order, ``a``'s entries first on equal keys.  Any run
+    lengths; SENTINEL-padded runs merge their padding to the tail."""
     if _is_cpu(a, ca, b, cb):
         return merge_sorted_u64_plain(a, ca, b, cb)
     for t, dt, name in ((a, torch.int64, "a"), (ca, torch.int32, "ca"),
@@ -112,6 +114,8 @@ def merge_sorted_u64(a: torch.Tensor, ca: torch.Tensor, b: torch.Tensor,
     n = a.numel() + b.numel()
     ok = torch.empty(n, dtype=torch.int64, device=a.device)
     oc = torch.empty(n, dtype=torch.int32, device=a.device)
+    if n == 0:
+        return ok, oc
     rc = lib.kx_merge_u64(a.data_ptr(), ca.data_ptr(), a.numel(),
                           b.data_ptr(), cb.data_ptr(), b.numel(),
                           ok.data_ptr(), oc.data_ptr(), kernels.stream_ptr(ok))

@@ -49,6 +49,8 @@ def _declare(L: ctypes.CDLL) -> None:
     L.kx_sort_workspace_bytes.argtypes = [i64]
     L.kx_merge_u64.restype = i32
     L.kx_merge_u64.argtypes = [p, p, i64, p, p, i64, p, p, p]
+    L.kx_merge_tile.restype = i32
+    L.kx_merge_tile.argtypes = []
     L.kx_compact_count.restype = i32
     L.kx_compact_count.argtypes = [p, i64, p, p]
     L.kx_compact_scatter.restype = i32

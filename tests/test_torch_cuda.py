@@ -128,20 +128,108 @@ def test_sort_u64_rejects_too_many_keys(dev):
                                None) != 0
 
 
-@pytest.mark.parametrize("la,lb", [(0, 5), (1, 1), (1000, 500), (1500, 500),
-                                   (1 << 16, 3), (40000, 70000)])
+def _check_merge_exact(dev, a: np.ndarray, b: np.ndarray, ca=None, cb=None):
+    """merge_sorted_u64 on the card equals the stable plain version exactly,
+    keys and payloads.  By default the payloads are unique indices (a's
+    below b's), so they must also equal numpy's stable argsort of a ++ b;
+    the inputs are left as they were."""
+    la, lb = len(a), len(b)
+    unique = ca is None
+    if unique:
+        ca = np.arange(la, dtype=np.int32)
+        cb = np.arange(la, la + lb, dtype=np.int32)
+    ts = [torch.from_numpy(v).to(dev) for v in (a, ca, b, cb)]
+    before = [t.clone() for t in ts]
+    launches = kernels.LAUNCHES["merge_sorted_u64"]
+    k, c = sort.merge_sorted_u64(*ts)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["merge_sorted_u64"] == launches + (la + lb > 0)
+    assert all(torch.equal(t, t0) for t, t0 in zip(ts, before))
+    wk, wc = sort.merge_sorted_u64_plain(*[t.cpu() for t in ts])
+    assert k.dtype == torch.int64 and c.dtype == torch.int32
+    assert torch.equal(k.cpu(), wk)
+    assert torch.equal(c.cpu(), wc)
+    if unique:
+        order = np.argsort(_u(np.concatenate([a, b])), kind="stable")
+        assert np.array_equal(c.cpu().numpy(), order.astype(np.int32))
+
+
+def _size(spec, tile: int) -> int:
+    """An int, or (m, d) for m tiles of csrc/merge.cu plus d."""
+    return spec if isinstance(spec, int) else spec[0] * tile + spec[1]
+
+
+def _sorted_run(rng, n: int) -> np.ndarray:
+    return np.sort(_u(_keys(rng, n))).view(np.int64)
+
+
+@pytest.mark.parametrize("la,lb", [
+    (0, 5), (1, 1), (1000, 500), (1500, 500), (1 << 16, 3), (40000, 70000),
+    (0, 0), (5, 0), (0, (1, 0)), ((1, 0), 0), ((0, 700), (1, -701)),
+    ((0, 700), (1, -700)), ((0, 700), (1, -699)), ((1, -1), (2, 6)),
+    ((3, 5), 1), (1, (3, 4)), ((2, 0), (2, 0)), (5 * (1 << 20) + 3, 1 << 20)])
 def test_merge_sorted_matches_plain(dev, la, lb):
+    """Random runs (10% SENTINEL at the tails) with random payloads, at
+    sizes around the kernel's tile: TILE - 1, TILE, TILE + 1, 3 * TILE + 5
+    in total, empty runs, one element against several tiles."""
+    tile = kernels.lib().kx_merge_tile()
+    la, lb = _size(la, tile), _size(lb, tile)
     rng = np.random.default_rng(la * 7 + lb)
-    a = np.sort(_u(_keys(rng, la))).view(np.int64)
-    b = np.sort(_u(_keys(rng, lb))).view(np.int64)
+    a, b = _sorted_run(rng, la), _sorted_run(rng, lb)
     ca = rng.integers(0, 1 << 30, la).astype(np.int32)
     cb = rng.integers(0, 1 << 30, lb).astype(np.int32)
-    ta = [torch.from_numpy(v).to(dev) for v in (a, ca, b, cb)]
-    k, c = sort.merge_sorted_u64(*ta)
-    wk, wc = sort.merge_sorted_u64_plain(*[v.cpu() for v in ta])
-    assert torch.equal(k.cpu(), wk)
-    got = sorted(zip(k.cpu().tolist(), c.cpu().tolist()))
-    assert got == sorted(zip(wk.tolist(), wc.tolist()))
+    _check_merge_exact(dev, a, b, ca, cb)
+    _check_merge_exact(dev, a, b)
+
+
+def _merge_pattern(name: str, la: int, lb: int, rng):
+    r = np.sort(rng.integers(0, 1 << 64, la + lb, dtype=np.uint64))
+    if name == "all_equal":
+        return (np.full(la, 0x0123456789ABCDEF, np.int64),
+                np.full(lb, 0x0123456789ABCDEF, np.int64))
+    if name == "all_sentinel":
+        return np.full(la, S, np.int64), np.full(lb, S, np.int64)
+    if name == "a_below_b":
+        return r[:la].view(np.int64), r[la:].view(np.int64)
+    if name == "a_above_b":
+        return r[lb:].view(np.int64), r[:lb].view(np.int64)
+    if name == "bit63_only":
+        top = np.int64(-(1 << 63))
+        return (np.sort(rng.integers(0, 2, la)).astype(np.int64) * top,
+                np.sort(rng.integers(0, 2, lb)).astype(np.int64) * top)
+    if name == "few_values":
+        return (np.sort(rng.integers(0, 1 << 8, la, dtype=np.int64)),
+                np.sort(rng.integers(0, 1 << 8, lb, dtype=np.int64)))
+    if name == "padded_tails":
+        a, b = r[:la].view(np.int64).copy(), r[la:].view(np.int64).copy()
+        a[la // 2:] = S
+        b[lb // 3:] = S
+        return a, b
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("name", ["all_equal", "all_sentinel", "a_below_b",
+                                  "a_above_b", "bit63_only", "few_values",
+                                  "padded_tails"])
+@pytest.mark.parametrize("la,lb", [((2, 5), (1, 0)), ((1, -3), (4, 1)),
+                                   (300, 500)])
+def test_merge_sorted_patterns(dev, name, la, lb):
+    """Inputs where a wrong tie rule at a tile or thread boundary shows:
+    long stretches of equal keys across both runs, windows that hold only
+    ``a`` or only ``b``, keys that differ only in bit 63."""
+    tile = kernels.lib().kx_merge_tile()
+    la, lb = _size(la, tile), _size(lb, tile)
+    a, b = _merge_pattern(name, la, lb, np.random.default_rng(la + lb))
+    _check_merge_exact(dev, a, b)
+
+
+def test_merge_rejects_negative_length(dev):
+    lib = kernels.lib()
+    assert lib.kx_merge_tile() > 0
+    assert lib.kx_merge_u64(None, None, -1, None, None, 5, None, None,
+                            None) != 0
+    assert lib.kx_merge_u64(None, None, 0, None, None, 0, None, None,
+                            None) == 0
 
 
 @pytest.mark.parametrize("n,frac", [(1, 0.0), (1000, 0.5), (1024, 1.0),

@@ -18,6 +18,9 @@ from kmcex_tpu_torch.count import sort
 from kmcex_tpu_torch.native import kernels
 
 S = np.uint64(0xFFFFFFFFFFFFFFFF)
+# outputs per block of csrc/merge.cu (THREADS * ITEMS; kx_merge_tile() on the
+# card): the sizes below put run ends and equal keys on its tile boundaries
+MERGE_TILE = 256 * 15
 
 
 @pytest.fixture(autouse=True)
@@ -80,11 +83,53 @@ def test_sort_u64_with_payload_equals_pallas(n):
 @pytest.mark.parametrize("la,lb,pad_a,pad_b", [
     (1000, 500, 0, 0), (1 << 10, 1 << 10, 0, 0), (3000, 1700, 0, 0),
     (1, 1, 0, 0), (900, 700, 124, 300), (0, 600, 0, 40),
+    (MERGE_TILE - 701, 700, 0, 0), (MERGE_TILE - 700, 700, 0, 0),
+    (MERGE_TILE - 700, 701, 0, 0), (MERGE_TILE, MERGE_TILE, 0, 0),
+    (2 * MERGE_TILE, MERGE_TILE + 5, 0, 0), (MERGE_TILE - 100, 300, 100, 84),
+    (MERGE_TILE, 0, 0, 0), (0, MERGE_TILE + 1, 0, 0),
 ])
 def test_merge_sorted_equals_pallas(la, lb, pad_a, pad_b):
     rng = np.random.default_rng(la * 31 + lb)
     a = np.concatenate([np.sort(_keys(rng, la, 0.0)), np.full(pad_a, S)])
     b = np.concatenate([np.sort(_keys(rng, lb, 0.0)), np.full(pad_b, S)])
+    _check_merge_equals_pallas(rng, a, b)
+
+
+def _merge_pattern(name: str, la: int, lb: int, rng):
+    """Two ascending uint64 runs that put long stretches of equal keys, or
+    none of one run, into a tile of the card's merge."""
+    r = np.sort(_keys(rng, la + lb, 0.0, top_bit=False))
+    if name == "all_equal":
+        v = np.uint64(0x0123456789ABCDEF)
+        return np.full(la, v), np.full(lb, v)
+    if name == "all_sentinel":
+        return np.full(la, S), np.full(lb, S)
+    if name == "a_below_b":
+        return r[:la], r[la:]
+    if name == "a_above_b":
+        return r[lb:], r[:lb]
+    if name == "bit63_only":
+        top = np.uint64(1 << 63)
+        return (np.sort(rng.integers(0, 2, la, dtype=np.uint64) * top),
+                np.sort(rng.integers(0, 2, lb, dtype=np.uint64) * top))
+    if name == "few_values":
+        return (np.sort(rng.integers(0, 1 << 8, la, dtype=np.uint64)),
+                np.sort(rng.integers(0, 1 << 8, lb, dtype=np.uint64)))
+    raise ValueError(name)
+
+
+MERGE_PATTERNS = ["all_equal", "all_sentinel", "a_below_b", "a_above_b",
+                  "bit63_only", "few_values"]
+
+
+@pytest.mark.parametrize("name", MERGE_PATTERNS)
+def test_merge_sorted_patterns_equal_pallas(name):
+    rng = np.random.default_rng(len(name))
+    a, b = _merge_pattern(name, MERGE_TILE + 5, MERGE_TILE - 7, rng)
+    _check_merge_equals_pallas(rng, a, b)
+
+
+def _check_merge_equals_pallas(rng, a, b):
     ca = rng.integers(0, 1000, len(a)).astype(np.uint32)
     cb = rng.integers(0, 1000, len(b)).astype(np.uint32)
     n = len(a) + len(b)
@@ -114,8 +159,12 @@ def test_sort_u64_plain_is_stable(n, distinct):
     np.testing.assert_array_equal(_np(gp), order.astype(np.uint32))
 
 
-@pytest.mark.parametrize("la,lb,pad", [(500, 700, 0), (1000, 1000, 50),
-                                       (1, 3000, 10)])
+@pytest.mark.parametrize("la,lb,pad", [
+    (500, 700, 0), (1000, 1000, 50), (1, 3000, 10),
+    (MERGE_TILE - 701, 700, 0), (MERGE_TILE - 700, 700, 0),
+    (MERGE_TILE - 700, 701, 0), (2 * MERGE_TILE, MERGE_TILE + 5, 0),
+    (MERGE_TILE - 100, MERGE_TILE - 100, 100), (0, 0, 0), (0, 900, 0),
+    (900, 0, 0), (0, 0, MERGE_TILE)])
 def test_merge_plain_ties_take_a_first(la, lb, pad):
     """On equal keys (SENTINEL padding included) every entry of ``a`` comes
     before every entry of ``b``, as in csrc/merge.cu."""
@@ -123,6 +172,20 @@ def test_merge_plain_ties_take_a_first(la, lb, pad):
     pool = _keys(rng, 20, 0.0)
     a = np.concatenate([np.sort(rng.choice(pool, la)), np.full(pad, S)])
     b = np.concatenate([np.sort(rng.choice(pool, lb)), np.full(pad, S)])
+    _check_merge_stable(a, b)
+
+
+@pytest.mark.parametrize("name", MERGE_PATTERNS)
+def test_merge_plain_patterns_take_a_first(name):
+    """The stable order on the patterns the card tests use: all keys equal,
+    all SENTINEL, disjoint ranges, keys that differ only in bit 63, few
+    distinct values."""
+    rng = np.random.default_rng(len(name) + 100)
+    _check_merge_stable(*_merge_pattern(name, 2 * MERGE_TILE + 5,
+                                        MERGE_TILE, rng))
+
+
+def _check_merge_stable(a, b):
     ca = np.arange(len(a), dtype=np.uint32)  # a's payloads < b's
     cb = np.arange(len(a), len(a) + len(b), dtype=np.uint32)
     gk, gc = sort.merge_sorted_u64(_t(a), _t(ca), _t(b), _t(cb))
