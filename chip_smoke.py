@@ -20,14 +20,28 @@ Phases, one line each (any failure exits non-zero):
      its operations at 67 T/s, whichever takes longer;
   4. the port's CLI build on the realistic-spectrum workload (the seeded
      generator of bench.py: 2M-base genome, 533,000 x 150 bp reads, 0.5%
-     errors; k=31 ci=1 cs=1023 nh=7 nb=5): 10,883,515 distinct k-mers, and
-     the KMC1 database and the model byte-identical to an independent numpy
-     count fed to the port's host encoder; its peak device memory;
+     errors; k=31 ci=1 cs=1023 nh=7 nb=5), the Bloom bank built on the
+     device: 10,883,515 distinct k-mers, and the KMC1 database and the model
+     byte-identical to an independent numpy count fed to the port's host
+     encoder (host Bloom insert); its peak device memory; then the same
+     build twice more, warm, with ``KMCEX_DEVICE_BLOOM=0`` and without, the
+     two encode times side by side;
   5. the same on the headline workload (200,000 reads, 0.2% errors) with a
      small raw tier, so the run LSM collapses and merges;
+  6. the Bloom bank alone on the realistic table: ``DeviceBloomBuilder`` fed
+     in one call and in two, against the host insert, 0 differing bytes;
+     CUDA-event times of the feed and of the byte pack;
+  7. the model-only path, ``count_encode(..., db_path=None)``: the model
+     equal to phase 4's byte for byte, one more compaction launch (the
+     low-key drop), and the table bytes that crossed to the host with and
+     without the drop;
+  8. serving: ``load_model`` on phase 4's model, ``DeviceKModel`` on the
+     card, bench.py's query mix (1,000,000 queries, half counted k-mers,
+     half random): the device answers equal the host's on every query,
+     twice; host, end-to-end and device-resident Mq/s;
 
-then one JSON line with every kernel's launches on the main path (phases 4
-and 5) and times, the card line, and the result line.  Imports no JAX.
+then one JSON line with every kernel's launches on the main path (phases 4,
+5 and 7) and times, the card line, and the result line.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -145,9 +159,10 @@ def timed(fn, reps: int = 5):
     return res, float(np.median(times))
 
 
-def top_device_ops(fn, k: int = 3):
+def top_device_ops(fn, k: int = 3, totals: bool = False):
     """The k kernels with the most device time in one call of ``fn``, from
-    torch.profiler: [(name, ms, launches)]."""
+    torch.profiler: [(name, ms, launches)]; with ``totals`` also the summed
+    device time of all kernels (ms) and their number."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -157,7 +172,10 @@ def top_device_ops(fn, k: int = 3):
     rows = [(e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count)
             for e in prof.key_averages()]
     rows.sort(key=lambda r: -r[1])
-    return [(name[:48], ms, count) for name, ms, count in rows[:k]]
+    top = [(name[:48], ms, count) for name, ms, count in rows[:k]]
+    if totals:
+        return top, sum(r[1] for r in rows), sum(r[2] for r in rows)
+    return top
 
 
 def bound(n_bytes: int, n_ops: int) -> dict:
@@ -321,16 +339,10 @@ def phase_kernels(dev):
     return out
 
 
-def run_cli(work: pathlib.Path, name: str, ascii_reads, extra_env=None):
-    """Write the FASTQ, run the port's CLI on cuda, check it against the
-    numpy oracle byte for byte; returns (distinct, stats)."""
+def cli_build(fq: pathlib.Path, wd: pathlib.Path, extra_env=None):
+    """Run the port's CLI on cuda into ``wd``; returns (distinct, stats)."""
     from kmcex_tpu_torch.cli import main
-    from kmcex_tpu_torch.io.kmc_db import KMC1StreamWriter
-    from kmcex_tpu_torch.model.kmodel import get_model
 
-    fq = work / f"{name}.fastq"
-    write_fastq(fq, ascii_reads)
-    wd = work / name
     wd.mkdir()
     stats_json = wd / "stats.json"
     env = {"KMCEX_STATS_JSON": str(stats_json), **(extra_env or {})}
@@ -351,26 +363,215 @@ def run_cli(work: pathlib.Path, name: str, ascii_reads, extra_env=None):
         raise AssertionError(f"cli.main returned {rc}")
     text = buf.getvalue()
     distinct = int(text.split("total kmercount")[1].split(":")[1].split()[0])
-    stats = json.loads(stats_json.read_text())
+    return distinct, json.loads(stats_json.read_text())
+
+
+def oracle_build(od: pathlib.Path, ascii_reads):
+    """The numpy oracle's database and model (host encoder, host Bloom
+    insert) under ``od``; returns its (kmers, counts), ci-filtered and
+    cs-clamped."""
+    from kmcex_tpu_torch.io.kmc_db import KMC1StreamWriter
+    from kmcex_tpu_torch.model.kmodel import get_model
 
     kmers, counts = oracle_counts(ascii_reads, K)
     counts = np.minimum(counts, CS).astype(np.uint32)
     keep = counts >= CI
     kmers, counts = kmers[keep], counts[keep]
-    od = work / f"{name}_oracle"
     km = get_model(CI, CS, NH, NB)
     km.init_from_pairs(kmers, counts, K)
     km.save(od / "o.res")
     w = KMC1StreamWriter(str(od / "o.res"), K, min_count=CI, max_count=CS)
     w.write_chunk(kmers, counts.astype(np.uint64))
     w.close()
+    return kmers, counts
+
+
+def same_files(name: str, wd: pathlib.Path, od: pathlib.Path, files=FILES):
+    for fn in files:
+        if (wd / fn).read_bytes() != (od / fn).read_bytes():
+            raise AssertionError(f"{name}: {fn} differs from the oracle")
+
+
+def run_cli(work: pathlib.Path, name: str, ascii_reads, extra_env=None):
+    """Write the FASTQ, run the port's CLI on cuda, check it against the
+    numpy oracle byte for byte; returns (distinct, stats, oracle kmers,
+    oracle counts)."""
+    fq = work / f"{name}.fastq"
+    write_fastq(fq, ascii_reads)
+    distinct, stats = cli_build(fq, work / name, extra_env)
+    kmers, counts = oracle_build(work / f"{name}_oracle", ascii_reads)
     if distinct != len(kmers):
         raise AssertionError(f"{name}: CLI counted {distinct} distinct, "
                              f"oracle {len(kmers)}")
-    for fn in FILES:
-        if (wd / fn).read_bytes() != (od / fn).read_bytes():
-            raise AssertionError(f"{name}: {fn} differs from the oracle")
-    return distinct, stats
+    same_files(name, work / name, work / f"{name}_oracle")
+    return distinct, stats, kmers, counts
+
+
+def encode_line(st) -> str:
+    ph = st["phases"]
+    keys = ("finalize.bloom_feed_dispatch", "encode.bloom_pull",
+            "encode.bloom_insert", "encode.chunk_wait", "encode.array_feed",
+            "encode.array_finish", "merge+stats")
+    return ", ".join(f"{k_} {ph[k_]:.3f} s" for k_ in keys if k_ in ph)
+
+
+def phase_bloom_alone(dev, kmers, counts):
+    """DeviceBloomBuilder on the realistic table, fed in one call and in two
+    split calls, against the host insert: differing bytes must be 0.
+    Returns the CUDA-event times of the feed and of the byte pack."""
+    import torch
+
+    from kmcex_tpu_torch.model import device_bloom
+    from kmcex_tpu_torch.model.bloom import BloomBank
+
+    hist = np.array([np.count_nonzero(counts == CI + i) for i in range(3)])
+    host = BloomBank(hist, NH, CI)
+    t = time.time()
+    host.insert(0, kmers[counts == CI], K)
+    t_host = time.time() - t
+    u = torch.from_numpy(kmers.view(np.int64)).to(dev)
+    c = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    n = len(kmers)
+    res = {}
+    for cuts in (1, 2, 1):  # the last one-call build is the warm, timed one
+        b = device_bloom.DeviceBloomBuilder(K, CI, CS, NH, hist, device=dev)
+        step = -(-n // cuts)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        for a in range(0, n, step):
+            b.feed_table(u[a : a + step], c[a : a + step], step)
+        ev[1].record()
+        ev[2].record()
+        device_bloom._pack_bytes(b._bitmap)
+        ev[3].record()
+        bank = BloomBank(hist, NH, CI)
+        b.into(bank)
+        torch.cuda.synchronize()
+        bad = int((bank.bit_bf[0] != host.bit_bf[0]).sum()
+                  + (bank.bit_bf_back[0] != host.bit_bf_back[0]).sum())
+        if bad:
+            raise AssertionError(f"device Bloom bank fed in {cuts} call(s): "
+                                 f"{bad} bytes differ from the host insert")
+        res = dict(feed_ms=ev[0].elapsed_time(ev[1]),
+                   pack_ms=ev[2].elapsed_time(ev[3]))
+    def feed_once():
+        b2 = device_bloom.DeviceBloomBuilder(K, CI, CS, NH, hist, device=dev)
+        b2.feed_table(u, c, n)
+    top, busy_ms, launches = top_device_ops(feed_once, totals=True)
+    n_low = int(hist[0])
+    print(f"[bloom] feed under torch.profiler: {launches} launches, "
+          f"{busy_ms:.3f} ms of kernels; most device time: "
+          + ", ".join(f"{name} {ms:.3f} ms x{count}"
+                      for name, ms, count in top))
+    print(f"[bloom] {n_low} low-count keys of {n}, {b.total_bytes} filter "
+          f"bytes: fed in one call and in two, 0 bytes differ from the host "
+          f"insert; device feed {res['feed_ms']:.3f} ms "
+          f"({n_low * (2 * NH - 3) / res['feed_ms'] / 1e6:.3f} G probe "
+          f"bits/s), byte pack {res['pack_ms']:.3f} ms; host insert (all "
+          f"cores) {t_host * 1e3:.1f} ms")
+    return res
+
+
+def phase_model_only(work: pathlib.Path, fq: pathlib.Path, cli_dir, st_cli,
+                     compact_cli: int):
+    """count_encode(..., db_path=None): Bloom bank on the device, low keys
+    dropped from the transfer.  Model bytes equal the CLI run's; one more
+    compaction launch.  Returns this run's launch counts."""
+    from kmcex_tpu_torch.count.pipeline import count_encode
+    from kmcex_tpu_torch.native import kernels
+
+    kernels.reset_launches()  # the model-only path's run starts here
+    km, _, _, st = count_encode(str(fq), K, CI, CS, NH, NB)
+    launches = dict(kernels.LAUNCHES)
+    km.save(work / "model_only" / "o.res")
+    same_files("model-only", work / "model_only", cli_dir,
+               ["o.res/header", "o.res/km.bin", "o.res/rest.bin"])
+    if launches["sort_u64"] < 1 or launches["compact_pairs"] != compact_cli + 1:
+        raise AssertionError(
+            f"model-only run launched {launches}; the CLI run launched "
+            f"compact_pairs {compact_cli} times and the drop adds one")
+    if "encode.bloom_insert" in st.phases or "finalize.drop_low" not in st.phases:
+        raise AssertionError(f"model-only phases: {sorted(st.phases)}")
+    print(f"[model-only] header, km.bin, rest.bin equal the CLI run's; "
+          f"launches {launches}; table bytes to the host "
+          f"{st.table_bytes_to_host} with the drop, "
+          f"{st_cli['table_bytes_to_host']} without; count "
+          f"{st.count_seconds:.3f} s, encode {st.encode_seconds:.3f} s, "
+          f"chunk_wait {st.phases['encode.chunk_wait']:.3f} s, drop_low "
+          f"{st.phases['finalize.drop_low']:.3f} s")
+    return launches
+
+
+def phase_serving(dev, model_dir: pathlib.Path, kmers, counts):
+    """bench.py's query mix against the realistic model, host and device."""
+    import torch
+
+    from kmcex_tpu_torch import DeviceKModel, load_model
+    from kmcex_tpu_torch.core import codec
+
+    km = load_model(model_dir)
+    t = time.time()
+    dm = DeviceKModel(km)  # device=None: the card
+    torch.cuda.synchronize()
+    t_load = time.time() - t
+    rng = np.random.default_rng(0)
+    nq = 1_000_000
+    q = np.concatenate([rng.choice(kmers, nq // 2),
+                        rng.integers(0, 1 << 62, nq // 2, dtype=np.uint64)])
+    rng.shuffle(q)
+
+    km.kmer_to_occ_u64(q[:1000])  # warm
+    best_h, host = 1e9, None
+    for _ in range(2):
+        t = time.time()
+        host = km.kmer_to_occ_u64(q)
+        best_h = min(best_h, time.time() - t)
+    dm.kmer_to_occ(q[: dm.TILE])  # warm
+    best_d, answers = 1e9, []
+    for _ in range(3):
+        t = time.time()
+        answers.append(dm.kmer_to_occ(q))
+        best_d = min(best_d, time.time() - t)
+    n_resolved = dm.n_resolved
+    bad = int((answers[0] != host).sum())
+    if bad:
+        raise AssertionError(f"serving: {bad} of {nq} device answers differ "
+                             f"from the host's")
+    if not all(np.array_equal(a, answers[0]) for a in answers[1:]):
+        raise AssertionError("serving: a second call gave other answers")
+
+    # queries resident on the card, main pass only
+    qd = torch.from_numpy(q.view(np.int64)).to(dev)
+    def main_pass():
+        for a in range(0, nq, dm.TILE):
+            dm._main(qd[a : a + dm.TILE])
+    _, main_ms = timed(main_pass, reps=5)
+    _, both_ms = timed(lambda: dm.query_tensor(qd), reps=5)
+    top, busy_ms, launches = top_device_ops(main_pass, totals=True)
+
+    # the oracle's count of every present query, through OccuBin
+    qc = codec.canonical_np(q, K)
+    pos = np.minimum(np.searchsorted(kmers, qc), len(kmers) - 1)
+    present = kmers[pos] == qc
+    ob = km.occu_bin
+    want = ob.bin_to_mean_np(ob.occ_to_bin_np(counts[pos[present]]))
+    exact = float((answers[0][present] == want.astype(np.int32)).mean())
+    fp = float((answers[0][~present] != 0).mean())
+    print(f"[serving] {nq} queries ({int(present.sum())} present): device "
+          f"answers equal the host's on all, twice more the same; resolve "
+          f"pass took {n_resolved} ambiguous queries; host "
+          f"{nq / best_h / 1e6:.3f} Mq/s, device end to end "
+          f"{nq / best_d / 1e6:.3f} Mq/s, device resident main pass "
+          f"{nq / main_ms / 1e3:.3f} Mq/s ({main_ms:.3f} ms), resident both "
+          f"passes {nq / both_ms / 1e3:.3f} Mq/s ({both_ms:.3f} ms); present "
+          f"answers equal to OccuBin(count): {exact:.6f}; absent answered "
+          f"non-zero: {fp:.6f}; model on the device {dm.device_bytes()} "
+          f"bytes (host model {km.total_model_bytes()} bytes), upload + "
+          f"cuckoo build {t_load:.3f} s")
+    print(f"[serving] main pass under torch.profiler: {launches} launches, "
+          f"{busy_ms:.3f} ms of kernels in {main_ms:.3f} ms; most device "
+          f"time: " + ", ".join(f"{name} {ms:.3f} ms x{count}"
+                                for name, ms, count in top))
 
 
 def main() -> int:
@@ -407,7 +608,7 @@ def main() -> int:
         reads = make_reads(2_000_000, 533_000, 4242, 0.005)
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()  # the main path's run starts here
-        distinct, st = run_cli(work, "realistic", reads)
+        distinct, st, kmers, counts = run_cli(work, "realistic", reads)
         l4 = dict(kernels.LAUNCHES)
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         if distinct != REALISTIC_DISTINCT:
@@ -421,12 +622,48 @@ def main() -> int:
               f"{st['reads'] / secs / 1e6:.4f} Mreads/s, launches {l4}, "
               f"tiers {st['tiers']}, peak device memory {peak_mb:.1f} MB; DB "
               f"and model byte-identical to the numpy oracle")
+        if "encode.bloom_insert" in st["phases"]:
+            raise AssertionError("realistic: the host Bloom insert ran")
+        print(f"[realistic] device Bloom build: {encode_line(st)}")
         del reads
+        st_cli = st
+        # the same build twice more, warm: host insert, then device build
+        fq = work / "realistic.fastq"
+        warm = {}
+        for name, env in (("host_insert", {"KMCEX_DEVICE_BLOOM": "0"}),
+                          ("device_bloom", {})):
+            d_, warm[name] = cli_build(fq, work / f"warm_{name}", env)
+            same_files(name, work / f"warm_{name}", work / "realistic_oracle")
+            if d_ != REALISTIC_DISTINCT:
+                raise AssertionError(f"{name}: {d_} distinct k-mers")
+        if "encode.bloom_insert" not in warm["host_insert"]["phases"]:
+            raise AssertionError("KMCEX_DEVICE_BLOOM=0 did not insert on "
+                                 "the host")
+        print(f"[realistic] warm, one process: encode "
+              f"{warm['device_bloom']['encode_seconds']:.3f} s with the "
+              f"device Bloom build (count "
+              f"{warm['device_bloom']['count_seconds']:.3f} s; "
+              f"{encode_line(warm['device_bloom'])}) against "
+              f"{warm['host_insert']['encode_seconds']:.3f} s with "
+              f"KMCEX_DEVICE_BLOOM=0 (count "
+              f"{warm['host_insert']['count_seconds']:.3f} s; "
+              f"{encode_line(warm['host_insert'])}); both byte-identical "
+              f"to the oracle")
+        print("[realistic] warm device-Bloom run, phases: " + ", ".join(
+            f"{k_} {v:.3f}" for k_, v in sorted(
+                warm["device_bloom"]["phases"].items(), key=lambda kv: -kv[1])))
+
+        phase_bloom_alone(dev, kmers, counts)
+        l6 = phase_model_only(work, fq, work / "realistic", st_cli,
+                              l4["compact_pairs"])
+        phase_serving(dev, work / "realistic" / "o.res", kmers, counts)
+        del kmers, counts
+        torch.cuda.empty_cache()
 
         reads = make_reads(2_000_000, 200_000, 12345, 0.002)
         kernels.reset_launches()  # the run-LSM path's run starts here
-        distinct, st = run_cli(work, "headline", reads,
-                               {"KMCEX_RAW_TIER_ELEMS": "8388608"})
+        distinct, st, _, _ = run_cli(work, "headline", reads,
+                                     {"KMCEX_RAW_TIER_ELEMS": "8388608"})
         l5 = dict(kernels.LAUNCHES)
         if not all(v > 0 for v in l5.values()):
             raise AssertionError(f"run-LSM run skipped a kernel: {l5}")
@@ -448,9 +685,10 @@ def main() -> int:
     for name, (path, repl, also) in src.items():
         rows.append({"name": name, "route": "cuda", "source": path,
                      "replaces": repl, "also_replaces": also,
-                     "launches": l4[name] + l5[name],
+                     "launches": l4[name] + l5[name] + l6[name],
                      "launches_realistic": l4[name],
-                     "launches_run_lsm": l5[name], **bench[name]})
+                     "launches_run_lsm": l5[name],
+                     "launches_model_only": l6[name], **bench[name]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,22 @@
 """kmcex_tpu_torch — the PyTorch / CUDA port of ``kmcex_tpu``.
 
 Counts canonical k-mers in FASTQ reads on one NVIDIA GPU, writes the KMC1
-database, and encodes the KModel (Bloom bank + coupled bit arrays + exact
-rest store) byte-identical to the JAX package.  The package keeps the JAX
+database, encodes the KModel (Bloom bank + coupled bit arrays + exact rest
+store) byte-identical to the JAX package, and answers ``kmer_to_occ`` from
+the host or from a model resident on the GPU with identical answers.  The package keeps the JAX
 package's layout and module names; it imports ``torch`` and never ``jax``
 or ``kmcex_tpu``.
 
 Layer map:
-  core/      k-mer math: base LUT, revcomp/canonical on int64 tensors,
-             OccuBin count quantizer
+  core/      k-mer math: base LUT, revcomp/canonical and MurmurHash64A on
+             int64 tensors, OccuBin count quantizer
   io/        FASTQ/FASTA ingestion (native segmenter) and the KMC1 writer
   count/     the counting engine: extract, the hand-written CUDA sort /
              merge / compaction kernels (csrc/) with plain PyTorch versions
              beside them, the device run LSM, the CLI pipeline
-  model/     KModel build and serialization (Bloom bank, rest store)
+  model/     KModel build, query and serialization (Bloom bank, rest
+             store), the device Bloom-bank build
+  query/     DeviceKModel: the model on the GPU, batched kmer_to_occ
   native/    builds and binds the host C++ runtime and the CUDA kernels
   cli.py     kmcEx-compatible CLI
 
@@ -23,7 +26,9 @@ k-mers travel as int64 tensors holding the raw uint64 bit pattern
 
 from kmcex_tpu_torch.config import KParams
 from kmcex_tpu_torch.model.kmodel import KModel, get_model, load_model
+from kmcex_tpu_torch.query.device_model import DeviceKModel
 
 __version__ = "0.1.0"
 
-__all__ = ["KParams", "KModel", "get_model", "load_model", "__version__"]
+__all__ = ["KParams", "KModel", "DeviceKModel", "get_model", "load_model",
+           "__version__"]

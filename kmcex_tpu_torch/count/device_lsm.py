@@ -17,7 +17,12 @@ subset, in PyTorch:
     reference's counters are clamped when its kmc binary writes the
     database, so every consumer must see clamped values).  The table then
     streams to pinned host memory in ~16 ascending chunks with
-    ``non_blocking`` copies, ci-filtered on the host.
+    ``non_blocking`` copies, ci-filtered on the host.  With a
+    ``bloom_factory`` the Bloom bank is built on the device from the full
+    table behind those copies (``model.device_bloom``); with ``drop_low``
+    the keys that only feed the Bloom bank are masked out and the table is
+    recompacted (``compact_pairs``) before it streams, so they never cross
+    to the host.
 
 Keys are int64 tensors holding the uint64 bit pattern (SENTINEL = -1);
 counts are int32 (merged sums saturate at 2^31-1, far above any cs).
@@ -30,7 +35,6 @@ Left out of the JAX module, on purpose:
   * the bit-packed delta transfer (:434-513, :1151-1239), built for a slow
     host link; the pinned-memory chunk copy takes its place (the encoder
     is chunk-invariant);
-  * the device Bloom build (``bloom_factory`` / ``drop_low``);
   * host and disk spill, and checkpoint: a run that would reach
     ``SPILL_THRESHOLD`` raises ``NotImplementedError``.
 """
@@ -38,6 +42,7 @@ Left out of the JAX module, on purpose:
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -52,6 +57,7 @@ from kmcex_tpu_torch.count.extract import (
 )
 from kmcex_tpu_torch.count.sort import merge_sorted_u64
 from kmcex_tpu_torch.utils.device import resolve_device
+from kmcex_tpu_torch.utils.timing import verbose
 
 _I32_MAX = (1 << 31) - 1
 
@@ -111,6 +117,17 @@ def _fused_finalize(kmers_list, ci: int, cs: int):
     u, c, _ = segment_compact(sorted_u64(flat))
     c = c.clamp(max=cs)
     return u, c, _final_stats(u, c, ci)
+
+
+def _drop_compact(u, c, thresh: int):
+    """The low-key drop of the model-only path: mask the pairs with count <
+    ``thresh`` (= ci + bf_num: the Bloom-bound and sub-ci keys) to
+    (SENTINEL, 0), recompact with the compaction kernel, and take the
+    dropped table's own stats.  Returns (u2, c2, stats2)."""
+    keep = c >= thresh
+    u2, c2 = compact_pairs(torch.where(keep, u, SENTINEL),
+                           torch.where(keep, c, 0))
+    return u2, c2, _final_stats(u2, c2, thresh)
 
 
 _STREAM_CHUNKS = 16
@@ -178,6 +195,10 @@ class DeviceCountAccumulator:
         self.total_windows = 0
         # tier-transition telemetry (surfaced via KMCEX_STATS_JSON)
         self.tier_events = {"raw_collapses": 0, "device_merges": 0}
+        # set by finalize_stream
+        self.device_bloom = None
+        self.finalize_phases: dict[str, float] = {}
+        self.table_bytes_to_host = 0
 
     def add_batch_packed(self, packed: torch.Tensor,
                          maskbits: torch.Tensor) -> None:
@@ -252,13 +273,69 @@ class DeviceCountAccumulator:
         while len(self.runs) >= 2:
             self._merge_top2()
 
-    def finalize_stream(self, ci: int = 1, cs: int = _I32_MAX):
+    def _finalize_device_table(self, u, c, flat, ci: int, bloom_factory,
+                               drop_low: bool):
+        """Common tail of both finalize routes: optional device Bloom build
+        (model.device_bloom) and optional low-key transfer drop, then the
+        chunk copies.  Dispatch order on the one stream: the table copies go
+        FIRST so the transfer starts at once; the Bloom feed runs behind
+        them on the device while the host starts to encode; the byte pack
+        and the pull of the filter bytes come last.  Sets
+        ``self.device_bloom`` to the fed DeviceBloomBuilder (None when no
+        build ran)."""
+        fin = self.finalize_phases
+        total = int(flat[0])
+        hist = flat[1:4].astype(np.int64)
+        n_real = int(flat[4])
+        bloom = None
+        if bloom_factory is not None and n_real:
+            try:
+                bloom = bloom_factory(hist)
+            except ValueError as e:  # bitmap too large: the host builds
+                if verbose():
+                    print(f"   device bloom build not taken ({e}); the "
+                          f"host inserts")
+        t = time.time()
+        if bloom is not None and drop_low:
+            bf_num = 1 if ci == 1 else 3
+            su, sc, flat2 = _drop_compact(u, c, ci + bf_num)
+            n_stream = int(flat2[4])
+            fin["drop_low"] = time.time() - t
+            t = time.time()
+        else:
+            su, sc, n_stream = u, c, n_real
+        chunks = iter(())
+        if total:
+            self.table_bytes_to_host = n_stream * (su.element_size()
+                                                   + sc.element_size())
+            chunks = _stream_table(su, sc, n_stream, ci)
+        fin["copy_dispatch"] = time.time() - t
+        if bloom is not None:
+            t = time.time()
+            bloom.feed_table(u, c, n_real)
+            bloom.start_pull()
+            fin["bloom_feed_dispatch"] = time.time() - t
+        self.device_bloom = bloom
+        return total, hist, chunks
+
+    def finalize_stream(self, ci: int = 1, cs: int = _I32_MAX,
+                        bloom_factory=None, drop_low: bool = False):
         """Streaming finalize: returns (total, low_hist, chunk_iter) where
         ``chunk_iter`` yields (uint64 kmers, uint32 counts) numpy chunks in
         ascending k-mer order, ci-filtered and cs-clamped; ``total`` and
         ``low_hist`` (count of counter == ci+i, i < 3) are the encoder's
-        sizing pass over the whole table."""
+        sizing pass over the whole table.
+
+        ``bloom_factory`` (callable(low_hist) ->
+        model.device_bloom.DeviceBloomBuilder) opts into building the Bloom
+        bank on the device; it lands, fed, on ``self.device_bloom``.
+        ``drop_low`` additionally drops the Bloom-bound keys (and sub-ci
+        keys) from the host transfer — only valid when the caller does not
+        need the low pairs on the host (no KMC database spool)."""
         cs = min(int(cs), _I32_MAX)
+        self.device_bloom = None
+        self.table_bytes_to_host = 0
+        fin = self.finalize_phases = {}
         if not self.runs and self.raw:
             u, c, flat = _fused_finalize(self.raw, ci, cs)
             self.raw = []
@@ -268,10 +345,7 @@ class DeviceCountAccumulator:
             if not self.runs:
                 return 0, np.zeros(3, dtype=np.int64), iter(())
             u, c, _ = self.runs[0]
-            c = c.clamp(max=cs)  # clamp before stats, as the fused path
+            c = c.clamp(max=cs)  # clamp before stats, feed and drop
             flat = _final_stats(u, c, ci)
-        total = int(flat[0])
-        hist = flat[1:4].astype(np.int64)
-        if total == 0:
-            return total, hist, iter(())
-        return total, hist, _stream_table(u, c, int(flat[4]), ci)
+        return self._finalize_device_table(u, c, flat, ci, bloom_factory,
+                                           drop_low)

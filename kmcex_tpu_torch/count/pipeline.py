@@ -5,9 +5,10 @@ and ``run``, single-device accumulator), in PyTorch: a producer thread
 parses and 2-bit packs reads (native segmenter), a second one copies them
 to the device, the main thread enqueues extract / sort / merge work, and
 the finalized table streams back in chunks that feed the KMC1 spool and the
-native coupled-array encoder.  The Bloom bank is built on the host (the
-JAX path's ``KMCEX_DEVICE_BLOOM=0`` configuration; the model bytes are the
-same either way).  No checkpointing yet.
+native coupled-array encoder.  The Bloom bank is built on the device from
+the counted table (``model.device_bloom``); ``KMCEX_DEVICE_BLOOM=0`` selects
+the host insert instead, and the model bytes are the same either way.  No
+checkpointing yet.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from kmcex_tpu_torch.config import KParams
 from kmcex_tpu_torch.count.device_lsm import DeviceCountAccumulator
 from kmcex_tpu_torch.io import fastq, kmc_db
+from kmcex_tpu_torch.model.device_bloom import DeviceBloomBuilder
 from kmcex_tpu_torch.model.kmodel import KModel, get_model, split_chunk
 from kmcex_tpu_torch.utils import prefetch_iterator
 from kmcex_tpu_torch.utils.device import resolve_device
@@ -40,6 +42,8 @@ class PipelineStats:
     phases: dict = dataclasses.field(default_factory=dict)
     # tier-transition counts from the accumulator (raw collapses, merges)
     tiers: dict = dataclasses.field(default_factory=dict)
+    # bytes of the counted table copied to the host (keys + counts)
+    table_bytes_to_host: int = 0
 
 
 def count_encode(
@@ -52,10 +56,18 @@ def count_encode(
     batch_segs: int = fastq.DEFAULT_BATCH_SEGS,
     db_path: str | None = None,
     device=None,
-) -> tuple[KModel, PipelineStats]:
+    keep_pairs: bool = False,
+) -> tuple[KModel, np.ndarray | None, np.ndarray | None, PipelineStats]:
     """Count + encode, the device->host table pull overlapping the host
     encode.  ``db_path`` spools the KMC1 database chunk by chunk.
-    ``device=None`` means the GPU and raises without one."""
+    ``device=None`` means the GPU and raises without one.
+
+    The Bloom bank is built on the device unless ``KMCEX_DEVICE_BLOOM=0``.
+    When the host needs no low pairs (no ``db_path``, no ``keep_pairs``)
+    the keys that only feed the Bloom bank are dropped from the transfer:
+    the model-only path.  Returns (model, kmers, counts, stats) as the JAX
+    package's ``count_encode`` does; the ci-filtered, cs-clamped listing
+    (uint64 kmers, uint32 counts) only with ``keep_pairs=True``, else None."""
     device = resolve_device(device)
     ph = Phases()
     t0 = time.time()
@@ -78,8 +90,17 @@ def count_encode(
         for packed, maskbits in prefetch_iterator(parsed, depth=2,
                                                   transform=put):
             acc.add_batch_packed(packed, maskbits)
+    fin_kwargs = {}
+    if os.environ.get("KMCEX_DEVICE_BLOOM", "1") != "0":
+        fin_kwargs = dict(
+            bloom_factory=lambda hist: DeviceBloomBuilder(
+                k, ci, cs, num_hash, hist, device=device),
+            drop_low=(not keep_pairs) and db_path is None,
+        )
     with ph.phase("merge+stats"):
-        total, low_hist, chunks = acc.finalize_stream(ci, cs)
+        total, low_hist, chunks = acc.finalize_stream(ci, cs, **fin_kwargs)
+    for name, secs in acc.finalize_phases.items():
+        ph.add(f"finalize.{name}", secs)
 
     bf_num = 1 if ci == 1 else 3
     writer = None
@@ -87,8 +108,12 @@ def count_encode(
         writer = kmc_db.KMC1StreamWriter(db_path, k, min_count=ci,
                                          max_count=cs)
 
+    collected: list[tuple[np.ndarray, np.ndarray]] = []
+
     def produce(item):
         ku, kc = item
+        if keep_pairs:
+            collected.append((ku, kc))
         if writer is not None:
             writer.write_chunk(ku, kc.astype(np.uint64))
         return split_chunk(ku, kc, ci, bf_num)
@@ -101,7 +126,8 @@ def count_encode(
     km = get_model(ci, cs, num_hash, num_bit)
     try:
         with ph.phase("transfer+encode"):
-            km.init_from_chunks(chunks, k, total, low_hist)
+            km.init_from_chunks(chunks, k, total, low_hist,
+                                device_bloom=acc.device_bloom)
     except BaseException:
         # a partial spool must not look like a complete database
         if writer is not None:
@@ -121,8 +147,15 @@ def count_encode(
         encode_seconds=t_total - t_count,
         phases=dict(ph.seconds),
         tiers=dict(acc.tier_events),
+        table_bytes_to_host=acc.table_bytes_to_host,
     )
-    return km, stats
+    kmers = counts = None
+    if keep_pairs:
+        kmers = (np.concatenate([x[0] for x in collected]) if collected
+                 else np.zeros(0, np.uint64))
+        counts = (np.concatenate([x[1] for x in collected]) if collected
+                  else np.zeros(0, np.uint32))
+    return km, kmers, counts, stats
 
 
 def run(params: KParams, device=None) -> tuple[KModel, PipelineStats]:
@@ -136,7 +169,7 @@ def run(params: KParams, device=None) -> tuple[KModel, PipelineStats]:
         native.set_num_threads(params.t)
     batch_env = int(os.environ.get("KMCEX_BATCH_SEGS", 0))
     db_path = params.output_file_name or None
-    km, stats = count_encode(
+    km, _, _, stats = count_encode(
         params.input_file_name, params.k, params.ci, params.cs,
         params.num_hash, params.num_bit, db_path=db_path, device=device,
         **({"batch_segs": batch_env} if batch_env else {}),

@@ -1,15 +1,19 @@
-"""Bloom-filter bank for low-count k-mers (host build).
+"""Bloom-filter bank for low-count k-mers.
 
-Copy of the JAX package's ``model/bloom.py`` build half, itself a rebuild
-of the reference BF bank (kmodel.hpp:248-258,361-506): ``bf_num`` filter
+Copy of the JAX package's ``model/bloom.py``, itself a rebuild of the
+reference BF bank (kmodel.hpp:248-258,361-506): ``bf_num`` filter
 *pairs* (1 when ci==1, else 3); pair i holds exactly the k-mers with counter
 ci+i.  Each pair couples a main filter over the full k-mer ASCII string
 (nh-1 hashes, ``count/5.5*(nh-1)`` bytes) with a "back" filter over the
-middle (k-2)-mer (nh-2 hashes, ``(count>>3)*(nh-2)`` bytes).
+middle (k-2)-mer (nh-2 hashes, ``(count>>3)*(nh-2)`` bytes).  Membership
+requires both.  When ci>1 the probe order is pairs {1,0,2}, i.e. counts
+ci+1, ci, ci+2 (kmodel.hpp:246,361-371).
 
-Insertion is a commutative scatter-OR, run by the native C++ insert.  The
-probe (``check_all``) belongs to the query path, which this package does
-not have yet.
+Insertion is a commutative scatter-OR — order-free.  Two builds give
+bit-identical filters: the native C++ host insert (this module), and the
+device build (``model/device_bloom.py``), the default of the counting
+pipeline, which scatters the probe bits into a device bitmap so that only
+the finished filter bytes cross to the host.
 """
 
 from __future__ import annotations
@@ -53,6 +57,8 @@ class BloomBank:
         self.length_bf_back = self.byte_bf_back << np.uint64(3)
         self.bit_bf = [np.zeros(int(b), dtype=np.uint8) for b in self.byte_bf]
         self.bit_bf_back = [np.zeros(int(b), dtype=np.uint8) for b in self.byte_bf_back]
+        # Probe order: identity when ci==1, else {1,0,2} (kmodel.hpp:246,363).
+        self.probe_order = [0] if ci == 1 else [1, 0, 2]
 
     @property
     def bf_kmercount(self) -> int:
@@ -77,3 +83,26 @@ class BloomBank:
             kmers_u64, k, self.bit_bf_back[pair_idx], int(self.length_bf_back[pair_idx]),
             self.bf_back_num_hash, substr_mode=1, n_threads=n_threads,
         )
+
+    def check_all(self, kmers_u64: np.ndarray, k: int) -> np.ndarray:
+        """Batched check_all_bf (kmodel.hpp:361-371): returns the count
+        (pair+ci) of the first pair (in probe order) where both filters hit,
+        else 0."""
+        kmers_u64 = np.asarray(kmers_u64, dtype=np.uint64)
+        out = np.zeros(len(kmers_u64), dtype=np.int32)
+        undecided = np.ones(len(kmers_u64), dtype=bool)
+        for i in self.probe_order:
+            if not undecided.any():
+                break
+            main = native.check_bloom(
+                kmers_u64, k, self.bit_bf[i], int(self.length_bf[i]),
+                self.bf_num_hash, substr_mode=0,
+            )
+            back = native.check_bloom(
+                kmers_u64, k, self.bit_bf_back[i], int(self.length_bf_back[i]),
+                self.bf_back_num_hash, substr_mode=1,
+            )
+            hit = undecided & main & back
+            out[hit] = i + self.ci
+            undecided &= ~hit
+        return out

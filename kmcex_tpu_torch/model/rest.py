@@ -1,12 +1,17 @@
 """KRestData — the exact overflow store for bit-array rejects.
 
-Copy of the JAX package's ``model/rest.py`` build and serialization half: a
-byte-compatible rebuild of the reference rest store (rest.hpp:46-260), a CSR
-over 4^pre_len prefix buckets, suffixes packed 4 bases/byte, counts as
+Copy of the JAX package's ``model/rest.py``: a byte-compatible rebuild of
+the reference rest store (rest.hpp:46-260), a CSR over 4^pre_len prefix buckets, suffixes packed 4 bases/byte, counts as
 int32, with the reference's ``rest.bin`` on-disk layout reproduced field for
 field.  Because k <= 32 the per-bucket sort by suffix bytes is a sort by the
-packed k-mer value.  The lookup (``check_kmer``) belongs to the query path,
-which this package does not have yet.
+packed k-mer value, and the lookup is a searchsorted over the full k-mers.
+
+Reference quirk preserved: the binary search runs over the INCLUSIVE index
+range [bucket_start, next_bucket_start] (rest.hpp:236-247), so a key greater
+than every suffix in its bucket that equals the next bucket's first suffix
+"hits" and returns that (wrong-prefix) count.  For the last bucket the
+reference reads past its arrays (undefined); here nothing matches there,
+which is the only divergence.
 """
 
 from __future__ import annotations
@@ -43,6 +48,9 @@ class KRestData:
         self.count_bin: np.ndarray | None = None
         self.suffix_bin_count = 0
         self.pre_buffer_size = 0
+        # query acceleration (derived, not serialized)
+        self._suffix_int: np.ndarray | None = None
+        self._full_sorted: np.ndarray | None = None
 
     # -- build --------------------------------------------------------------
     def push_back(self, kmers_u64: np.ndarray, counts: np.ndarray) -> None:
@@ -85,6 +93,8 @@ class KRestData:
         self.count_bin = counts.astype(np.int32)
         # Pack suffixes 4 bases/byte, big-endian byte order (rest.hpp:21-34).
         self.suffix_bin = self._pack_suffix_bytes(suffix_int)
+        self._suffix_int = suffix_int
+        self._full_sorted = None
 
     def _pack_suffix_bytes(self, suffix_int: np.ndarray) -> np.ndarray:
         g = self.suff_group
@@ -93,6 +103,69 @@ class KRestData:
             shift = np.uint64(8 * (g - 1 - j))
             out[:, j] = ((suffix_int >> shift) & np.uint64(0xFF)).astype(np.uint8)
         return out.reshape(-1)
+
+    def _ensure_suffix_int(self) -> np.ndarray:
+        if self._suffix_int is None:
+            g = self.suff_group
+            b = self.suffix_bin.reshape(-1, g).astype(np.uint64)
+            v = np.zeros(len(b), dtype=np.uint64)
+            for j in range(g):
+                v = (v << np.uint64(8)) | b[:, j]
+            self._suffix_int = v
+        return self._suffix_int
+
+    # -- query --------------------------------------------------------------
+    def check_kmer(self, kmers_u64: np.ndarray) -> np.ndarray:
+        """Vectorized exact lookup; 0 where absent (rest.hpp:223-251
+        semantics, including the inclusive-high quirk)."""
+        kmers = np.asarray(kmers_u64, dtype=np.uint64)
+        scalar = kmers.ndim == 0
+        kmers = np.atleast_1d(kmers)
+        out = np.zeros(len(kmers), dtype=np.int32)
+        if self.suffix_bin_count == 0:
+            return int(out[0]) if scalar else out
+
+        S = self._ensure_suffix_int()
+        suf_bits = np.uint64(2 * self.suf_len)
+        prefixes = (kmers >> suf_bits).astype(np.int64)
+        suffixes = kmers & ((np.uint64(1) << suf_bits) - np.uint64(1))
+
+        pre_idx = self.hash2index[prefixes]
+        valid = pre_idx >= 0
+        lo = np.where(valid, self.pre_buffer[np.maximum(pre_idx, 0)], 0).astype(np.int64)
+        hi = np.where(valid, self.pre_buffer[np.maximum(pre_idx, 0) + 1], 0).astype(np.int64)
+
+        # The composite key (prefix, suffix) is the full k-mer, and the
+        # suffixes of one bucket are sorted, so one search of the sorted
+        # full k-mers stands for the search inside every bucket.
+        full_sorted = self._full_kmer_sorted()
+        pos = np.searchsorted(full_sorted, kmers)
+        in_range = valid & (pos < hi) & (pos >= lo)
+        hit = in_range & (np.take(full_sorted, np.minimum(pos, len(full_sorted) - 1)) == kmers)
+        out[hit] = self.count_bin[pos[hit]]
+
+        # Reference quirk: key beyond bucket end matching next bucket's first
+        # suffix (index hi) "hits" with that count (rest.hpp:236-250).
+        miss = valid & ~hit
+        nb = miss & (hi < self.suffix_bin_count)
+        nb_idx = np.where(nb, hi, 0)
+        nb_hit = nb & (S[nb_idx] == suffixes)
+        # only reachable when the key is greater than every bucket element:
+        gt_all = pos >= hi
+        nb_hit &= gt_all
+        out[nb_hit] = self.count_bin[nb_idx[nb_hit]]
+        return int(out[0]) if scalar else out
+
+    def _full_kmer_sorted(self) -> np.ndarray:
+        if self._full_sorted is None:
+            # Reconstruct sorted full k-mers from CSR (prefix per bucket +
+            # suffix ints); sorted by construction.
+            S = self._ensure_suffix_int()
+            counts = np.diff(self.pre_buffer).astype(np.int64)
+            nonempty_prefixes = np.flatnonzero(self.hash2index >= 0).astype(np.uint64)
+            pref = np.repeat(nonempty_prefixes, counts)
+            self._full_sorted = (pref << np.uint64(2 * self.suf_len)) | S
+        return self._full_sorted
 
     # -- serialization (rest.bin byte layout, rest.hpp:163-221) -------------
     def save_file(self, path: str | pathlib.Path) -> None:

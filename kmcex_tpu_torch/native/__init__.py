@@ -3,8 +3,8 @@
 
 The native library owns the order-dependent sequential encode (coupled
 bit-array insertion with the reference's rotating bucket schedule), the
-Bloom insert and the packed FASTQ segmenter.  Only the entry points the
-CLI build uses are bound here.
+Bloom insert and probe, the coupled-array probe of the host query, and the
+packed FASTQ segmenter.  Only the entry points the port uses are bound.
 """
 
 from __future__ import annotations
@@ -35,7 +35,18 @@ def _declare(L: ctypes.CDLL) -> None:
     u8p = ctypes.POINTER(ctypes.c_uint8)
     u32p = ctypes.POINTER(ctypes.c_uint32)
     u64p = ctypes.POINTER(ctypes.c_uint64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
     i64p = ctypes.POINTER(ctypes.c_int64)
+    L.kx_check_bloom.restype = None
+    L.kx_check_bloom.argtypes = [
+        u64p, ctypes.c_int64, ctypes.c_int, u8p, ctypes.c_uint64,
+        ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int,
+    ]
+    L.kx_find_bitarray.restype = None
+    L.kx_find_bitarray.argtypes = [
+        u64p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        u8p, u8p, ctypes.c_uint64, i32p, ctypes.c_int,
+    ]
     L.kx_insert_bloom.restype = None
     L.kx_insert_bloom.argtypes = [
         u64p, ctypes.c_int64, ctypes.c_int, u8p, ctypes.c_uint64,
@@ -84,13 +95,53 @@ def n_threads_default() -> int:
 def insert_bloom(kmers: np.ndarray, k: int, bf: np.ndarray, bit_len: int,
                  num_hash: int, substr_mode: int = 0, n_threads: int = 0) -> None:
     kmers = np.ascontiguousarray(kmers, dtype=np.uint64)
-    if bf.dtype != np.uint8 or not bf.flags.c_contiguous:
-        raise ValueError("bloom filter must be a contiguous uint8 array")
+    _require_u8(bf, "bloom filter")
     lib().kx_insert_bloom(
         _ptr(kmers, ctypes.c_uint64), len(kmers), k,
         _ptr(bf, ctypes.c_uint8), bit_len, num_hash, substr_mode,
         n_threads or n_threads_default(),
     )
+
+
+def _require_u8(arr: np.ndarray, what: str) -> None:
+    if arr.dtype != np.uint8 or not arr.flags.c_contiguous:
+        raise ValueError(f"{what} must be a contiguous uint8 array")
+
+
+def check_bloom(kmers: np.ndarray, k: int, bf: np.ndarray, bit_len: int,
+                num_hash: int, substr_mode: int = 0, n_threads: int = 0) -> np.ndarray:
+    """bool [n]: every probe bit of the k-mer (``substr_mode=1``: of its
+    middle (k-2)-mer) is set in ``bf``."""
+    kmers = np.ascontiguousarray(kmers, dtype=np.uint64)
+    _require_u8(bf, "bloom filter")
+    if not 0 < bit_len <= 8 * bf.size:
+        raise ValueError(f"bit_len {bit_len} outside a {bf.size}-byte filter")
+    out = np.zeros(len(kmers), dtype=np.uint8)
+    lib().kx_check_bloom(
+        _ptr(kmers, ctypes.c_uint64), len(kmers), k,
+        _ptr(bf, ctypes.c_uint8), bit_len, num_hash, substr_mode,
+        _ptr(out, ctypes.c_uint8), n_threads or n_threads_default(),
+    )
+    return out.astype(bool)
+
+
+def find_bitarray(kmers: np.ndarray, k: int, n_bits: int, n_hash: int,
+                  bit1: np.ndarray, bit2: np.ndarray, km_bit_size: int,
+                  n_threads: int = 0) -> np.ndarray:
+    """[n, n_bits] int32: decoded bin per (kmer, array), -1 where tags miss."""
+    kmers = np.ascontiguousarray(kmers, dtype=np.uint64)
+    _require_u8(bit1, "bit1")
+    _require_u8(bit2, "bit2")
+    if not 0 < n_bits * km_bit_size <= 8 * min(bit1.size, bit2.size):
+        raise ValueError(f"{n_bits} arrays of {km_bit_size} bits do not fit "
+                         f"{bit1.size} and {bit2.size} bytes")
+    out = np.zeros((len(kmers), n_bits), dtype=np.int32)
+    lib().kx_find_bitarray(
+        _ptr(kmers, ctypes.c_uint64), len(kmers), k, n_bits, n_hash,
+        _ptr(bit1, ctypes.c_uint8), _ptr(bit2, ctypes.c_uint8), km_bit_size,
+        _ptr(out, ctypes.c_int32), n_threads or n_threads_default(),
+    )
+    return out
 
 
 class BitArrayEncoder:
@@ -106,8 +157,7 @@ class BitArrayEncoder:
                  km_back: np.ndarray, back_bit_len: int, back_num_hash: int,
                  bucket_size: int = 1 << 18, n_threads: int = 0):
         for a in (bit1, bit2, km_back):
-            if a.dtype != np.uint8 or not a.flags.c_contiguous:
-                raise ValueError("bit arrays must be contiguous uint8")
+            _require_u8(a, "bit arrays")
         # keep referenced arrays alive for the encoder's lifetime
         self._occ2bin = np.ascontiguousarray(occ2bin, dtype=np.uint32)
         self._refs = (self._occ2bin, bit1, bit2, km_back)
@@ -148,8 +198,7 @@ def segment_buffer_packed(
     [cap, seg_len/8] validity bits — the device transfer format, written
     directly from ASCII.  Returns (rows, consumed, reads, bases, phase)."""
     for a in (out_packed, out_mask):
-        if a.dtype != np.uint8 or not a.flags.c_contiguous:
-            raise ValueError("segment buffers must be contiguous uint8")
+        _require_u8(a, "segment buffers")
     ph = ctypes.c_int(phase)
     consumed = np.zeros(1, dtype=np.int64)
     n_reads = np.zeros(1, dtype=np.int64)

@@ -287,3 +287,169 @@ def test_cli_cuda_equals_cpu(dev, tmp_path, monkeypatch):
     for fn in ("o.res.kmc_pre", "o.res.kmc_suf", "o.res/header",
                "o.res/km.bin", "o.res/rest.bin"):
         assert outs["cpu", fn] == outs["cuda", fn], fn
+
+
+# ---- device murmur, device Bloom build, low-key drop, DeviceKModel --------
+def _canonical_table(rng, n, k=31, max_c=9):
+    from kmcex_tpu_torch.core import codec
+
+    kmers = np.unique(codec.canonical_np(
+        rng.integers(0, 1 << (2 * k), n, dtype=np.uint64), k))
+    counts = rng.integers(1, max_c, len(kmers)).astype(np.uint32)
+    return kmers, counts
+
+
+def test_murmur_cuda_equals_numpy(dev):
+    """The two-stage hash and the unsigned modulo on the card: int64
+    products wrap there as on the CPU."""
+    from kmcex_tpu_torch.core import codec, murmur
+
+    rng = np.random.default_rng(1)
+    for k in (31, 32, 29, 30):
+        v = rng.integers(0, 1 << 63, 50000, dtype=np.uint64) * np.uint64(2) + 1
+        if k < 32:
+            v &= np.uint64((1 << (2 * k)) - 1)
+        want = murmur.murmur64_np(codec.ascii_bytes_np(v, k)[:, None, :],
+                                  murmur.HASH_SEEDS[None, :35])
+        t = torch.from_numpy(v.view(np.int64)).to(dev)
+        bl, tl = murmur.murmur_pre(codec.ascii_bytes(t, k))
+        h = murmur.murmur_eval(bl, tl, k,
+                               murmur.seeds_tensor(murmur.HASH_SEEDS[:35], dev))
+        assert np.array_equal(h.cpu().numpy().view(np.uint64), want)
+        for m in (8, 119_283_432, (1 << 40) - 3):
+            assert np.array_equal(
+                codec.umod(h, m).cpu().numpy().astype(np.uint64),
+                want % np.uint64(m))
+
+
+@pytest.mark.parametrize("ci,n,tile", [(1, 300_000, 1 << 16),
+                                       (2, 300_000, 100_003),
+                                       (1, 2_600_000, None)])
+def test_device_bloom_cuda_equals_cpu_and_host(dev, ci, n, tile, monkeypatch):
+    """Filter bytes built on the card equal the CPU run's and the host
+    insert's, on tables that cross TILE (the last case the real TILE), fed
+    in one call and in two."""
+    from kmcex_tpu_torch.model import device_bloom
+    from kmcex_tpu_torch.model.bloom import BloomBank
+
+    if tile:
+        monkeypatch.setattr(device_bloom, "TILE", tile)
+    k, nh, cs = 31, 7, 1023
+    bf_num = 1 if ci == 1 else 3
+    rng = np.random.default_rng(n + ci)
+    kmers, counts = _canonical_table(rng, n)
+    assert len(kmers) > device_bloom.TILE
+    hist = np.array([np.count_nonzero(counts == ci + i) for i in range(3)])
+    host = BloomBank(hist, nh, ci)
+    for i in range(bf_num):
+        host.insert(i, kmers[counts == ci + i], k)
+    u = torch.from_numpy(kmers.view(np.int64))
+    c = torch.from_numpy(counts.astype(np.int32))
+    banks = []
+    for d, cuts in (("cpu", 1), (dev, 1), (dev, 2)):
+        b = device_bloom.DeviceBloomBuilder(k, ci, cs, nh, hist, device=d)
+        ud, cd = u.to(d), c.to(d)
+        step = -(-len(kmers) // cuts)
+        for a in range(0, len(kmers), step):
+            b.feed_table(ud[a : a + step], cd[a : a + step], step)
+        bank = BloomBank(hist, nh, ci)
+        b.into(bank)
+        banks.append(bank)
+    for bank in banks:
+        for i in range(bf_num):
+            assert np.array_equal(bank.bit_bf[i], host.bit_bf[i])
+            assert np.array_equal(bank.bit_bf_back[i], host.bit_bf_back[i])
+
+
+@pytest.mark.parametrize("ci", [1, 2])
+def test_drop_compact_cuda_equals_cpu(dev, ci):
+    from kmcex_tpu_torch.count import device_lsm
+
+    rng = np.random.default_rng(30 + ci)
+    kmers, counts = _canonical_table(rng, 500_000)
+    pad = 12345
+    u = torch.cat([torch.from_numpy(kmers.view(np.int64)),
+                   torch.full((pad,), S, dtype=torch.int64)])
+    c = torch.cat([torch.from_numpy(counts.astype(np.int32)),
+                   torch.zeros(pad, dtype=torch.int32)])
+    thresh = ci + (1 if ci == 1 else 3)
+    wu, wc, wstats = device_lsm._drop_compact(u, c, thresh)
+    before = kernels.LAUNCHES["compact_pairs"]
+    gu, gc, gstats = device_lsm._drop_compact(u.to(dev), c.to(dev), thresh)
+    assert kernels.LAUNCHES["compact_pairs"] == before + 1
+    assert torch.equal(gu.cpu(), wu) and torch.equal(gc.cpu(), wc)
+    assert np.array_equal(gstats, wstats)
+    assert int(gstats[4]) == np.count_nonzero(counts >= thresh)
+
+
+@pytest.fixture(scope="module")
+def host_model():
+    """A model of ~400,000 k-mers built by the port's host encoder."""
+    from kmcex_tpu_torch.model.kmodel import get_model
+
+    rng = np.random.default_rng(77)
+    kmers, _ = _canonical_table(rng, 400_000)
+    counts = np.clip(rng.zipf(1.5, len(kmers)), 1, 1023).astype(np.uint32)
+    km = get_model(1, 1023, 7, 5)
+    km.init_from_pairs(kmers, counts, 31)
+    return km, kmers
+
+
+def test_device_kmodel_cuda_equals_cpu_and_host(dev, host_model):
+    """1,300,000 queries (half present) cross TILE; a small RESOLVE_TILE
+    makes the resolve pass run in many steps.  Card answers equal the CPU run of
+    the same tensor code and the host query."""
+    from kmcex_tpu_torch.query.device_model import DeviceKModel
+
+    km, kmers = host_model
+    rng = np.random.default_rng(8)
+    q = np.concatenate([rng.choice(kmers, 650_000),
+                        rng.integers(0, 1 << 62, 650_000, dtype=np.uint64)])
+    rng.shuffle(q)
+    want = km.kmer_to_occ_u64(q)
+    dm = DeviceKModel(km, device=dev)
+    assert len(q) > dm.TILE
+    dm.RESOLVE_TILE = 100
+    got = dm.kmer_to_occ(q)
+    assert dm.n_resolved > dm.RESOLVE_TILE
+    assert np.array_equal(got, want)
+    assert np.array_equal(dm.kmer_to_occ(q, tile=70_001), want)
+    cpu = DeviceKModel(km, device="cpu").kmer_to_occ(q[:50_000])
+    assert np.array_equal(cpu, want[:50_000])
+    qd = torch.from_numpy(q.view(np.int64)).to(dev)
+    assert np.array_equal(dm.query_tensor(qd).cpu().numpy(), want)
+
+
+def test_count_encode_model_only_cuda_equals_cpu(dev, tmp_path, monkeypatch):
+    """The model-only path on the card (device Bloom + drop, one more
+    compaction launch than with the DB) saves the same model as the CPU run
+    and as the host-insert configuration."""
+    from kmcex_tpu_torch.count.pipeline import count_encode
+
+    rng = np.random.default_rng(6)
+    genome = rng.integers(0, 4, 30000)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    fq = tmp_path / "r.fastq"
+    with open(fq, "wb") as f:
+        for i, s in enumerate(rng.integers(0, len(genome) - 100, 3000)):
+            r = genome[s : s + 100].copy()
+            err = rng.random(100) < 0.01
+            r[err] = (r[err] + 1) % 4
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, acgt[r].tobytes(), b"I" * 100))
+    saved = {}
+    runs = (("cpu", "cpu", {}, "1"), ("cuda", dev, {}, "1"),
+            ("cuda_db", dev, {"db_path": str(tmp_path / "o.res")}, "1"),
+            ("cuda_host", dev, {}, "0"))
+    launches = {}
+    for name, d, kwargs, env in runs:
+        monkeypatch.setenv("KMCEX_DEVICE_BLOOM", env)
+        kernels.reset_launches()
+        km, _, _, stats = count_encode(str(fq), k=31, ci=2, device=d, **kwargs)
+        launches[name] = kernels.LAUNCHES["compact_pairs"]
+        km.save(tmp_path / name)
+        saved[name] = [(tmp_path / name / fn).read_bytes()
+                       for fn in ("header", "km.bin", "rest.bin")]
+        if name in ("cpu", "cuda"):
+            assert "finalize.drop_low" in stats.phases
+    assert launches["cuda"] == launches["cuda_db"] + 1
+    assert saved["cuda"] == saved["cpu"] == saved["cuda_db"] == saved["cuda_host"]

@@ -107,6 +107,9 @@ for m in pkgutil.walk_packages(kmcex_tpu_torch.__path__, "kmcex_tpu_torch."):
     importlib.import_module(m.name)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "kmcex_tpu")]
 assert not bad, bad
+for name in ("core.murmur", "model.device_bloom", "query.device_model"):
+    assert "kmcex_tpu_torch." + name in sys.modules, name
+assert kmcex_tpu_torch.DeviceKModel and kmcex_tpu_torch.load_model
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))
