@@ -35,6 +35,9 @@ USAGE = """\
         -nh<value>         - number of hash (default: 7)
         -nb<value>         - number of bit array (default: 5)
         -acc<kind>         - counting backend: device (one GPU)
+        -ckpt<dir>         - checkpoint the count phase into <dir>
+                             (rerunning the same command after a crash
+                             resumes from the last checkpoint)
 3. EXAMPLES
      kmcex -k31 -nh7 -nb5  rs.fastq rs.res /tmp
      kmcex -k31 -nh7 -nb5  @rs.lst rs.res /tmp
@@ -54,6 +57,8 @@ def parse_parameters(argv: list[str]) -> KParams | None:
             break
         if a.startswith("-acc"):
             params.accumulator = a[4:]
+        elif a.startswith("-ckpt"):
+            params.ckpt_dir = a[5:]
         elif a.startswith("-t"):
             params.t = int(a[2:])
         elif a.startswith("-k"):

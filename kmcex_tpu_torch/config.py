@@ -25,6 +25,10 @@ class KParams:
     # counting backend (CLI flag -acc): "device" = one GPU, the only backend
     # of this package so far (the JAX package also has "sharded")
     accumulator: str = "device"
+    # checkpoint directory for a resumable count phase (CLI flag -ckpt).
+    # Empty = no checkpointing.  A run killed mid-count resumes from the
+    # last checkpoint when rerun with the same arguments.
+    ckpt_dir: str = ""
 
     def __post_init__(self) -> None:
         if not (2 <= self.k <= 32):
@@ -39,7 +43,9 @@ class KParams:
             raise ValueError(f"cs must be >= ci, got cs={self.cs} ci={self.ci}")
         if self.accumulator != "device":
             raise ValueError(
-                f"accumulator must be device, got {self.accumulator!r}")
+                f"accumulator must be device, got {self.accumulator!r} (the "
+                f"sharded backend belongs to the multi-GPU slice of this "
+                f"package and is not ported yet)")
 
     @property
     def max_counter(self) -> int:

@@ -1,6 +1,6 @@
-"""FASTQ/FASTA ingestion: files -> fixed-shape 2-bit packed batches.
+"""FASTQ/FASTA ingestion: files -> fixed-shape 2-bit code batches.
 
-Copy of the JAX package's ``io/fastq.py`` (packed path): plain or gzipped
+Copy of the JAX package's ``io/fastq.py``: plain or gzipped
 FASTQ/FASTA, a single file or an ``@list`` file of inputs.  Reads are cut
 into fixed-length segments with k-1 overlap so every k-mer window appears in
 exactly one segment row; non-ACGT bases are masked (KMC splits reads at N,
@@ -8,8 +8,8 @@ kmc_file.cpp:1008-1023).  FASTQ goes through the native C++ segmenter, which
 writes the packed device format straight from ASCII; wrapped FASTA records
 are joined per record by NumPy with a k-1 carry across parse chunks.
 
-Differences from the JAX module: only the packed path, no byte-range
-splitting (multi-host input), and no silent NumPy fallback — if the native
+Differences from the JAX module: packed batches are the default, no
+byte-range splitting (multi-host input), and no silent NumPy fallback — if the native
 library does not load, iteration raises.
 """
 
@@ -180,15 +180,18 @@ def _segment_spans(
 
 
 class SegmentStream:
-    """Iterates packed batches over the input files, tracking read/base
-    statistics: (packed [batch_segs, seg_len/4], maskbits [batch_segs,
-    seg_len/8]) uint8 tuples (seg_len % 8 == 0), the format
-    ``count.extract.extract_canonical_packed`` takes."""
+    """Iterates batches over the input files, tracking read/base
+    statistics.  ``packed=True``: (packed [batch_segs, seg_len/4], maskbits
+    [batch_segs, seg_len/8]) uint8 tuples (seg_len % 8 == 0), the format
+    ``count.extract.extract_canonical_packed`` takes.  ``packed=False``:
+    [batch_segs, seg_len] uint8 codes, one base per byte (255 = pad/N), for
+    ``extract_canonical``."""
 
     def __init__(self, input_spec: str, k: int, seg_len: int = DEFAULT_SEG_LEN,
-                 batch_segs: int = DEFAULT_BATCH_SEGS):
-        if seg_len % 8:
+                 batch_segs: int = DEFAULT_BATCH_SEGS, packed: bool = True):
+        if packed and seg_len % 8:
             raise ValueError("packed batches need seg_len % 8 == 0")
+        self.packed = packed
         self.input_spec = input_spec
         self.k = k
         self.seg_len = seg_len
@@ -203,15 +206,21 @@ class SegmentStream:
         yield from self._iter_native(native)
 
     def _new_buf(self):
-        return (
-            np.zeros((self.batch_segs, self.seg_len // 4), dtype=np.uint8),
-            np.zeros((self.batch_segs, self.seg_len // 8), dtype=np.uint8),
-        )
+        if self.packed:
+            return (
+                np.zeros((self.batch_segs, self.seg_len // 4), dtype=np.uint8),
+                np.zeros((self.batch_segs, self.seg_len // 8), dtype=np.uint8),
+            )
+        return np.full((self.batch_segs, self.seg_len), 255, dtype=np.uint8)
 
     def _segment(self, native, arr, is_fasta, phase, buf, row):
-        return native.segment_buffer_packed(
-            arr, is_fasta, phase, self.k, self.seg_len,
-            buf[0][row:], buf[1][row:],
+        if self.packed:
+            return native.segment_buffer_packed(
+                arr, is_fasta, phase, self.k, self.seg_len,
+                buf[0][row:], buf[1][row:],
+            )
+        return native.segment_buffer(
+            arr, is_fasta, phase, self.k, self.seg_len, buf[row:]
         )
 
     def _iter_native(self, native) -> Iterator:
@@ -286,9 +295,12 @@ class SegmentStream:
             while off < len(segs):
                 take = min(len(segs) - off, self.batch_segs - row)
                 part = segs[off : off + take]
-                p, mbits = pack_codes_np(part)
-                buf[0][row : row + take] = p
-                buf[1][row : row + take] = mbits
+                if self.packed:
+                    p, mbits = pack_codes_np(part)
+                    buf[0][row : row + take] = p
+                    buf[1][row : row + take] = mbits
+                else:
+                    buf[row : row + take] = part
                 row += take
                 off += take
                 if row == self.batch_segs:
@@ -296,6 +308,12 @@ class SegmentStream:
                     buf = self._new_buf()
                     row = 0
         return buf, row
+
+
+def segment_batches(input_spec: str, k: int, seg_len: int = DEFAULT_SEG_LEN,
+                    batch_segs: int = DEFAULT_BATCH_SEGS) -> SegmentStream:
+    """The unpacked code-batch stream (the host accumulator's input)."""
+    return SegmentStream(input_spec, k, seg_len, batch_segs, packed=False)
 
 
 def sniff_read_length(input_spec: str, max_reads: int = 10000) -> int:

@@ -9,8 +9,8 @@ rest store — then serializes to the reference's ``header`` / ``km.bin`` /
 (== KMC1 database order).  The Bloom bank is filled by the host insert or
 from a ``model.device_bloom.DeviceBloomBuilder``.  Queries are batched
 (NumPy + the native probes here, ``query.device_model`` on the device);
-scalar string queries keep the reference API shape.  The KMC-database input
-(``init``) waits for the KMC reader.
+scalar string queries keep the reference API shape.  ``init`` builds from a
+KMC database on disk through ``io.kmc_db.KMCReader``.
 """
 
 from __future__ import annotations
@@ -250,6 +250,32 @@ class KModel:
         device_bloom.into(self.bloom)
         ph["bloom_pull"] = time.time() - t
         return rest
+
+    def init(self, db_path: str) -> None:
+        """Build from a KMC database on disk (reference KModel::init,
+        kmodel.hpp:57-86); listing order is the database's storage order.
+
+        Streams the database in bounded chunks, twice — exactly the
+        reference's two passes (get_km_kmer_count then the encode loop,
+        kmodel.hpp:57-86) — so host memory stays flat for genome-scale
+        databases (the reference reads 32MB suffix windows,
+        kmc_file.cpp:18,605-609)."""
+        from kmcex_tpu_torch.io import kmc_db
+
+        db = kmc_db.KMCReader(db_path)
+        if db.mode != 0:
+            # The reference feeds quake float bits straight into its integer
+            # encode path (garbage); reject instead of building a broken model.
+            raise ValueError("KModel requires an integer-counter (mode 0) database")
+        # Pass 1 (kmodel.hpp:423-434): totals + low-counter histogram.
+        total = 0
+        low_hist = np.zeros(3, dtype=np.uint64)
+        for _, counts in db.list_chunks():
+            total += len(counts)
+            for i in range(self.bf_num):
+                low_hist[i] += np.count_nonzero(counts == self.ci + i)
+        # Pass 2: stream the listing through the encoder.
+        self.init_from_chunks(db.list_chunks(), db.kmer_length, total, low_hist)
 
     @classmethod
     def from_arrays(cls, *, n_hash: int, n_bits: int, ci: int, cs: int,

@@ -3,8 +3,9 @@
 
 The native library owns the order-dependent sequential encode (coupled
 bit-array insertion with the reference's rotating bucket schedule), the
-Bloom insert and probe, the coupled-array probe of the host query, and the
-packed FASTQ segmenter.  Only the entry points the port uses are bound.
+Bloom insert and probe, the coupled-array probe of the host query, the FASTQ segmenters
+and the two-pointer merge of the host LSM level.  Only the entry points
+the port uses are bound.
 """
 
 from __future__ import annotations
@@ -37,6 +38,17 @@ def _declare(L: ctypes.CDLL) -> None:
     u64p = ctypes.POINTER(ctypes.c_uint64)
     i32p = ctypes.POINTER(ctypes.c_int32)
     i64p = ctypes.POINTER(ctypes.c_int64)
+    L.kx_murmur64.restype = ctypes.c_uint64
+    L.kx_murmur64.argtypes = [u8p, ctypes.c_int, ctypes.c_uint32]
+    L.kx_merge_runs.restype = ctypes.c_int64
+    L.kx_merge_runs.argtypes = [
+        u64p, u32p, ctypes.c_int64, u64p, u32p, ctypes.c_int64, u64p, u32p,
+    ]
+    L.kx_segment_buffer.restype = ctypes.c_int64
+    L.kx_segment_buffer.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int64, i64p, i64p, i64p,
+    ]
     L.kx_check_bloom.restype = None
     L.kx_check_bloom.argtypes = [
         u64p, ctypes.c_int64, ctypes.c_int, u8p, ctypes.c_uint64,
@@ -90,6 +102,32 @@ def n_threads_default() -> int:
     if _n_threads_override:
         return _n_threads_override
     return max(1, os.cpu_count() or 1)
+
+
+def murmur64(data: bytes, seed: int) -> int:
+    """MurmurHash64A of a byte string (the host reference of core.murmur)."""
+    buf = np.frombuffer(data, dtype=np.uint8)
+    return int(lib().kx_murmur64(_ptr(buf, ctypes.c_uint8), len(data), seed))
+
+
+def merge_runs(ka: np.ndarray, ca: np.ndarray, kb: np.ndarray, cb: np.ndarray
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """Merge two sorted (kmer, count) runs, summing duplicates
+    (u32-saturating).  The inputs may be read-only memmaps (a restored
+    checkpoint): ``np.ascontiguousarray`` hands ctypes a plain pointer to
+    the mapped pages, and the library only reads them."""
+    ka = np.ascontiguousarray(ka, dtype=np.uint64)
+    kb = np.ascontiguousarray(kb, dtype=np.uint64)
+    ca = np.ascontiguousarray(ca, dtype=np.uint32)
+    cb = np.ascontiguousarray(cb, dtype=np.uint32)
+    ko = np.zeros(len(ka) + len(kb), dtype=np.uint64)
+    co = np.zeros(len(ka) + len(kb), dtype=np.uint32)
+    n = lib().kx_merge_runs(
+        _ptr(ka, ctypes.c_uint64), _ptr(ca, ctypes.c_uint32), len(ka),
+        _ptr(kb, ctypes.c_uint64), _ptr(cb, ctypes.c_uint32), len(kb),
+        _ptr(ko, ctypes.c_uint64), _ptr(co, ctypes.c_uint32),
+    )
+    return ko[:n], co[:n]
 
 
 def insert_bloom(kmers: np.ndarray, k: int, bf: np.ndarray, bit_len: int,
@@ -188,6 +226,28 @@ class BitArrayEncoder:
         lib().kx_encoder_free(self._h)
         self._h = None
         return rk[:n], ro[:n]
+
+
+def segment_buffer(
+    data: np.ndarray, is_fasta: bool, phase: int, k: int, seg_len: int,
+    out_rows: np.ndarray,
+) -> tuple[int, int, int, int, int]:
+    """Segment complete lines of ``data`` into ``out_rows`` [cap, seg_len]
+    (one 2-bit code per byte, 255 = pad/N).  Returns (rows_written,
+    consumed_bytes, reads, bases, new_phase)."""
+    _require_u8(out_rows, "segment buffer")
+    ph = ctypes.c_int(phase)
+    consumed = np.zeros(1, dtype=np.int64)
+    n_reads = np.zeros(1, dtype=np.int64)
+    n_bases = np.zeros(1, dtype=np.int64)
+    rows = lib().kx_segment_buffer(
+        _ptr(data, ctypes.c_uint8), len(data), int(is_fasta),
+        ctypes.byref(ph), k, seg_len,
+        _ptr(out_rows, ctypes.c_uint8), out_rows.shape[0],
+        _ptr(consumed, ctypes.c_int64), _ptr(n_reads, ctypes.c_int64),
+        _ptr(n_bases, ctypes.c_int64),
+    )
+    return int(rows), int(consumed[0]), int(n_reads[0]), int(n_bases[0]), ph.value
 
 
 def segment_buffer_packed(

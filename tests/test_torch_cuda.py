@@ -453,3 +453,70 @@ def test_count_encode_model_only_cuda_equals_cpu(dev, tmp_path, monkeypatch):
             assert "finalize.drop_low" in stats.phases
     assert launches["cuda"] == launches["cuda_db"] + 1
     assert saved["cuda"] == saved["cpu"] == saved["cuda_db"] == saved["cuda_host"]
+
+
+@pytest.mark.parametrize("route,disk_bytes", [("host", 0), ("disk", 60_000)])
+def test_forced_spill_cuda_equals_unspilled(dev, tmp_path, route, disk_bytes):
+    """A forced host spill and a forced disk spill on the card: the run LSM
+    merges on the device (merge + compaction kernels), the runs leave it,
+    and the table, the sizing stats and the totals equal the unspilled
+    build's.  The disk tier leaves no file behind."""
+    from kmcex_tpu_torch.count.device_lsm import DeviceCountAccumulator
+
+    rng = np.random.default_rng(13)
+    genome = rng.integers(0, 4, 20000).astype(np.uint8)
+    batches = []
+    for _ in range(12):
+        starts = rng.integers(0, len(genome) - 96, 256)
+        codes = genome[starts[:, None] + np.arange(96)[None, :]]
+        codes[rng.random(codes.shape) < 0.01] = 255
+        batches.append(codes)
+    plain = DeviceCountAccumulator(21, device=dev)
+    kernels.reset_launches()
+    # two batches a collapse (38,912 windows, padded to 2^16); two such runs
+    # merge on the card to 2^17 and leave it
+    acc = DeviceCountAccumulator(21, raw_tier_elems=30_000,
+                                 spill_threshold=1 << 17,
+                                 disk_spill_bytes=disk_bytes,
+                                 disk_dir=str(tmp_path / "lsm"), device=dev)
+    for codes in batches:
+        plain.add_batch(codes)
+        acc.add_batch(codes)
+    ev = acc.tier_events
+    assert ev["raw_collapses"] > 0 and ev["host_spills"] > 0
+    assert (ev["disk_spills"] > 0) == (route == "disk")
+    wt, wh, wchunks = plain.finalize_stream(2, 9)
+    gt, gh, gchunks = acc.finalize_stream(2, 9)
+    assert ev["device_merges"] > 0
+    assert kernels.LAUNCHES["merge_sorted_u64"] > 0
+    assert kernels.LAUNCHES["compact_pairs"] > 0
+    want, got = list(wchunks), list(gchunks)
+    assert gt == wt > 0 and np.array_equal(gh, wh)
+    for j in (0, 1):
+        assert np.array_equal(np.concatenate([p[j] for p in got]),
+                              np.concatenate([p[j] for p in want]))
+    assert acc.spill_stats["copy_bytes"] > 0
+    if route == "disk":
+        assert list((tmp_path / "lsm").iterdir()) == []
+
+
+def test_merge_runs_unique_cuda_equals_cpu(dev):
+    """device_lsm._merge_runs on the card equals its CPU run on sorted
+    unique runs with ties, pads and counts near the int32 clamp."""
+    from kmcex_tpu_torch.count import device_lsm
+
+    rng = np.random.default_rng(4)
+
+    def run(n, pad):
+        k = np.sort(rng.choice(3 * n, n, replace=False)).astype(np.int64)
+        c = rng.integers(1, 1 << 30, n).astype(np.int32)
+        c[::97] = (1 << 31) - 1
+        return (torch.from_numpy(np.concatenate([k, np.full(pad, S)])),
+                torch.from_numpy(np.concatenate([c, np.zeros(pad, np.int32)])))
+
+    a, b = run(200_000, 62_144), run(150_000, 0)
+    want = device_lsm._merge_runs(*a, *b)
+    got = device_lsm._merge_runs(*(t.to(dev) for t in a + b))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(got[1].min()) >= 0

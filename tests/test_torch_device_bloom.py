@@ -234,7 +234,8 @@ def test_count_encode_model_identical_to_jax(config, ci, route, reads,
     if route == "run_lsm":
         assert stats.tiers["device_merges"] > 0
     else:
-        assert stats.tiers == {"raw_collapses": 0, "device_merges": 0}
+        assert stats.tiers == {"raw_collapses": 0, "device_merges": 0,
+                               "host_spills": 0, "disk_spills": 0}
     n_low = km.bloom.bf_kmercount
     if config == "host_insert":
         assert "encode.bloom_insert" in stats.phases

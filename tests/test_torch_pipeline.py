@@ -107,9 +107,14 @@ for m in pkgutil.walk_packages(kmcex_tpu_torch.__path__, "kmcex_tpu_torch."):
     importlib.import_module(m.name)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "kmcex_tpu")]
 assert not bad, bad
-for name in ("core.murmur", "model.device_bloom", "query.device_model"):
+for name in ("core.murmur", "model.device_bloom", "query.device_model",
+             "core.signature", "core.codec_mw", "io.kmc_db", "query.annotate",
+             "count.counter", "count.device_lsm", "count.pipeline"):
     assert "kmcex_tpu_torch." + name in sys.modules, name
 assert kmcex_tpu_torch.DeviceKModel and kmcex_tpu_torch.load_model
+from kmcex_tpu_torch.io.kmc_db import KMCReader, write_kmc1, write_kmc2
+from kmcex_tpu_torch.count.pipeline import count_fastq, count_encode, run
+from kmcex_tpu_torch.native import merge_runs, murmur64, segment_buffer
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))
