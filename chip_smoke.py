@@ -54,9 +54,26 @@ Phases, one line each (any failure exits non-zero):
      random-access lookups against the numpy oracle), ``KModel.init`` from
      it (model bytes equal phase 4's), a ``write_kmc2`` round trip, and
      per-window annotation of 1,000 reads from the database and the model;
+ 12. sharded build at full width: the realistic read set through
+     ``count_encode(accumulator="sharded")`` on a mesh of four logical
+     shards of the card, in this process: the five files equal phase 4's
+     byte for byte, the Bloom bank is built across the mesh (no host
+     insert), no re-route, all shards' sizes printed; then with the tiers
+     forced per shard (host and disk runs on every shard, the host inserts
+     the Bloom bank), same bytes; then an injected crash after a checkpoint
+     and a resume through ``ShardedCountAccumulator.restore``, same bytes;
+ 13. sharded serving: ``make_server`` over four shards of the card on phase
+     8's 1,000,000 queries, every answer equal to ``DeviceKModel``'s and the
+     host's;
+ 14. two processes: two spawned ranks of two shards each, both on the one
+     card, joined by gloo (KMCEX_COORDINATOR, KMCEX_NUM_PROCESSES,
+     KMCEX_PROCESS_ID, KMCEX_LOCAL_SHARDS), run the CLI with ``-accsharded``
+     on the headline read set: rank 0's files equal the numpy oracle's,
+     rank 1 writes none, both exit 0;
 
 then one JSON line with every kernel's launches on the main path (phases 4,
-5, 7 and 9) and times, the card line, and the result line.  Imports no JAX.
+5, 7, 9 and 12) and times, the card line, and the result line.  Imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -66,6 +83,7 @@ import io
 import json
 import os
 import pathlib
+import socket
 import subprocess
 import sys
 import tempfile
@@ -91,6 +109,13 @@ PEAK_OPS_S = 67e12
 SPILL_ENV = {"KMCEX_RAW_TIER_ELEMS": "8388608",
              "KMCEX_SPILL_THRESHOLD": "8388608",
              "KMCEX_DISK_SPILL_BYTES": "50331648"}
+# phase 12: per-shard thresholds (four shards) that push every shard of the
+# realistic table through every tier: a shard receives ~0.5M windows a batch,
+# so it collapses every second batch into a run of 2^20, two runs merge to
+# 2^21 and leave the card; the host budget is one for all shards
+SHARD_TIERS = {"RAW_TIER_ELEMS": 1 << 19, "SPILL_THRESHOLD": 1 << 21,
+               "DISK_SPILL_BYTES": 50331648}
+N_SHARDS = 4
 FILES = ["o.res.kmc_pre", "o.res.kmc_suf", "o.res/header", "o.res/km.bin",
          "o.res/rest.bin"]
 
@@ -545,7 +570,7 @@ def phase_model_only(work: pathlib.Path, fq: pathlib.Path, cli_dir, st_cli,
     from kmcex_tpu_torch.native import kernels
 
     kernels.reset_launches()  # the model-only path's run starts here
-    km, _, _, st = count_encode(str(fq), K, CI, CS, NH, NB)
+    km, _, _, st = count_encode(str(fq), K, CI, CS, NH, NB, keep_pairs=False)
     launches = dict(kernels.LAUNCHES)
     km.save(work / "model_only" / "o.res")
     same_files("model-only", work / "model_only", cli_dir,
@@ -844,6 +869,229 @@ def phase_database(dev, work: pathlib.Path, cli_dir, kmers, counts, reads_1k):
           f"seconds: " + ", ".join(f"{k_} {v:.3f}" for k_, v in secs.items()))
 
 
+def sharded_build(fq: pathlib.Path, wd: pathlib.Path, mesh, **kw):
+    """count_encode(accumulator="sharded") over ``mesh`` into ``wd`` (the
+    database and the model under the CLI's names); returns its stats."""
+    from kmcex_tpu_torch.count.pipeline import count_encode
+
+    wd.mkdir(exist_ok=True)
+    km, _, _, st = count_encode(str(fq), K, CI, CS, NH, NB, keep_pairs=False,
+                                db_path=str(wd / "o.res"),
+                                accumulator="sharded", mesh=mesh, **kw)
+    km.save(wd / "o.res")
+    return st
+
+
+def phase_sharded_build(dev, work: pathlib.Path, fq: pathlib.Path, cli_dir,
+                        card: str):
+    """The realistic read set on a mesh of four logical shards of the card:
+    unforced (mesh Bloom build), tiers forced per shard (host and disk runs
+    on every shard), crash + restore.  Every build must write phase 4's
+    bytes.  Returns the launch counts of the unforced and the forced run."""
+    import torch
+
+    from kmcex_tpu_torch.native import kernels
+    from kmcex_tpu_torch.parallel.sharded import (
+        ShardedCountAccumulator,
+        make_mesh,
+    )
+
+    mesh = make_mesh(devices=[dev] * N_SHARDS)
+    lsm_tmp = work / "sharded_tmp"
+    lsm_tmp.mkdir()
+    old_tmp, tempfile.tempdir = tempfile.tempdir, str(lsm_tmp)
+    saved = {k_: getattr(ShardedCountAccumulator, k_) for k_ in SHARD_TIERS}
+    env_keys = ("KMCEX_DISK_SPILL_BYTES", "KMCEX_CKPT_EVERY",
+                "KMCEX_CRASH_AFTER_BATCHES")
+    old_env = {k_: os.environ.pop(k_, None) for k_ in env_keys}
+    launches = {}
+    try:
+        for name in ("mesh", "forced"):
+            if name == "forced":
+                for k_, v in SHARD_TIERS.items():
+                    setattr(ShardedCountAccumulator, k_, v)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()  # the sharded path's run starts here
+            st = sharded_build(fq, work / f"sharded_{name}", mesh)
+            launches[name] = dict(kernels.LAUNCHES)
+            peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            same_files(f"sharded/{name}", work / f"sharded_{name}", cli_dir)
+            sh, ev = st.shards, st.tiers
+            if (st.distinct_kmers != REALISTIC_DISTINCT or sh["reroutes"]
+                    or sh["n"] != N_SHARDS or len(sh["sizes"]) != N_SHARDS):
+                raise AssertionError(f"sharded/{name}: distinct "
+                                     f"{st.distinct_kmers}, shards {sh}")
+            host_insert = "encode.bloom_insert" in st.phases
+            if name == "mesh":
+                if host_insert or sum(sh["sizes"]) != REALISTIC_DISTINCT:
+                    raise AssertionError(
+                        f"sharded/mesh: host Bloom insert {host_insert}, "
+                        f"shard sizes {sh['sizes']}")
+                need = ("sort_u64", "compact_pairs")
+            else:
+                if not host_insert or not ev["disk_spills"] or not all(
+                        ev[k_] >= N_SHARDS for k_ in
+                        ("raw_collapses", "device_merges", "host_spills")):
+                    raise AssertionError(
+                        f"sharded/forced: host Bloom insert {host_insert}, "
+                        f"tier events {ev}")
+                need = tuple(launches[name])
+            if not all(launches[name][k_] >= N_SHARDS for k_ in need):
+                raise AssertionError(f"sharded/{name} skipped a kernel: "
+                                     f"{launches[name]}")
+            left = sorted(p_.name for p_ in lsm_tmp.iterdir())
+            if left:
+                raise AssertionError(f"sharded/{name}: left in the temp "
+                                     f"directory: {left}")
+            secs = st.count_seconds + st.encode_seconds
+            print(f"[sharded] {name}: {N_SHARDS} shards on {card}; shard "
+                  f"sizes {sh['sizes']} (max/mean "
+                  f"{max(sh['sizes']) * N_SHARDS / sum(sh['sizes']):.4f}), "
+                  f"reroutes {sh['reroutes']}, distinct {st.distinct_kmers}, "
+                  f"launches {launches[name]}, tiers {ev}, count "
+                  f"{st.count_seconds:.3f} s, encode "
+                  f"{st.encode_seconds:.3f} s, "
+                  f"{st.reads / secs / 1e6:.4f} Mreads/s, stream+extract "
+                  f"{st.phases['stream+extract']:.3f} s, merge+stats "
+                  f"{st.phases['merge+stats']:.3f} s, spill copies "
+                  f"{st.spill['copy_bytes']} bytes in "
+                  f"{st.spill['copy_seconds']:.3f} s, merge pass "
+                  f"{st.spill['merge_pass_seconds']:.3f} s; host Bloom "
+                  f"insert {'ran' if host_insert else 'absent'}; peak device "
+                  f"memory {peak_mb:.1f} MB; files byte-identical to phase "
+                  f"4's; temp directory empty")
+        # checkpoint in the middle, crash, restore (tiers still forced)
+        ck = work / "sharded_ckpt"
+        os.environ["KMCEX_CKPT_EVERY"] = "8"
+        os.environ["KMCEX_CRASH_AFTER_BATCHES"] = "20"
+        try:
+            sharded_build(fq, work / "sharded_resume", mesh, ckpt_dir=str(ck))
+        except RuntimeError as e:
+            if "injected crash" not in str(e):
+                raise
+        else:
+            raise AssertionError("sharded/resume: the injected crash did "
+                                 "not fire")
+        m = ShardedCountAccumulator.read_manifest(str(ck))
+        if (m is None or m["extra"]["n_batches"] != 16
+                or m["n_shards"] != N_SHARDS
+                or (work / "sharded_resume" / "o.res.kmc_pre").exists()):
+            raise AssertionError(f"sharded/resume: manifest {m}")
+        del os.environ["KMCEX_CRASH_AFTER_BATCHES"]
+        st = sharded_build(fq, work / "sharded_resume", mesh,
+                           ckpt_dir=str(ck))
+        same_files("sharded/resume", work / "sharded_resume", cli_dir)
+        if (st.skipped_batches != 16
+                or ShardedCountAccumulator.read_manifest(str(ck)) is not None):
+            raise AssertionError(f"sharded/resume: skipped "
+                                 f"{st.skipped_batches} batches")
+        print(f"[sharded] resume: crash after 20 batches left a manifest of "
+              f"{N_SHARDS} shards at batch 16 "
+              f"({sum(map(len, m['shard_files']))} run files); restore "
+              f"skipped {st.skipped_batches} batches of 33, count "
+              f"{st.count_seconds:.3f} s, encode {st.encode_seconds:.3f} s, "
+              f"tiers {st.tiers}; files byte-identical to phase 4's; "
+              f"manifest retired")
+    finally:
+        for k_, v in saved.items():
+            setattr(ShardedCountAccumulator, k_, v)
+        for k_, v in old_env.items():
+            os.environ.pop(k_, None)
+            if v is not None:
+                os.environ[k_] = v
+        tempfile.tempdir = old_tmp
+    return launches
+
+
+def phase_sharded_serving(dev, model_dir: pathlib.Path, kmers):
+    """make_server over four shards of the card on phase 8's queries."""
+    from kmcex_tpu_torch import DeviceKModel, load_model
+    from kmcex_tpu_torch.parallel.serve import make_server
+
+    km = load_model(model_dir)
+    q = serving_queries(kmers)
+    host = km.kmer_to_occ_u64(q)
+    one = DeviceKModel(km).kmer_to_occ(q)
+    srv = make_server(km, devices=[dev] * N_SHARDS)
+    srv.kmer_to_occ(q[:100_000])  # warm
+    best, got = 1e9, None
+    for _ in range(3):
+        t = time.time()
+        got = srv.kmer_to_occ(q)
+        best = min(best, time.time() - t)
+    bad = int((got != host).sum()) + int((got != one).sum())
+    if bad:
+        raise AssertionError(f"sharded serving: {bad} answers differ from "
+                             f"the host's or DeviceKModel's")
+    n_resolved = srv.n_resolved
+    short = srv.kmer_to_occ(q[:3])  # fewer queries than shards
+    if not np.array_equal(short, host[:3]):
+        raise AssertionError("sharded serving: a short batch differs")
+    print(f"[sharded-serving] {len(q)} queries over {N_SHARDS} shards of the "
+          f"card ({len(srv.models)} model copy): every answer equal to "
+          f"DeviceKModel's and the host's; {len(q) / best / 1e6:.3f} Mq/s end "
+          f"to end (best of 3); resolve pass took {n_resolved} queries")
+
+
+def phase_two_ranks(work: pathlib.Path, fq: pathlib.Path, oracle_dir):
+    """Two ranks x two shards on the one card over gloo, through the CLI."""
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = {**os.environ, "PYTHONPATH": str(REPO),
+           "KMCEX_COORDINATOR": f"localhost:{port}",
+           "KMCEX_NUM_PROCESSES": "2", "KMCEX_LOCAL_SHARDS": "2"}
+    for k_ in ("KMCEX_RAW_TIER_ELEMS", "KMCEX_DISK_SPILL_BYTES"):
+        env.pop(k_, None)
+    t = time.time()
+    procs = []
+    for r in range(2):
+        wd = work / f"rank{r}"
+        wd.mkdir()
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "kmcex_tpu_torch.cli", f"-k{K}", f"-nh{NH}",
+             f"-nb{NB}", "-accsharded", str(fq), str(wd / "o.res"), str(wd)],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env={**env, "KMCEX_PROCESS_ID": str(r),
+                            "KMCEX_STATS_JSON": str(wd / "stats.json")}))
+    try:
+        outs = [p_.communicate(timeout=300) for p_ in procs]
+    finally:
+        for p_ in procs:
+            if p_.poll() is None:
+                p_.kill()
+                p_.communicate()
+    wall = time.time() - t
+    for r, (p_, (out, err)) in enumerate(zip(procs, outs)):
+        if p_.returncode != 0:
+            raise AssertionError(f"two-ranks: rank {r} exit {p_.returncode}"
+                                 f"\n{err[-3000:]}")
+    same_files("two-ranks", work / "rank0", oracle_dir)
+    left = sorted(p_.name for p_ in (work / "rank1").iterdir())
+    if left != ["stats.json"]:
+        raise AssertionError(f"two-ranks: rank 1 wrote {left}")
+    st = [json.loads((work / f"rank{r}" / "stats.json").read_text())
+          for r in range(2)]
+    if not (st[0]["distinct_kmers"] == st[1]["distinct_kmers"]
+            and st[0]["reads"] == st[1]["reads"] == 200_000
+            and [s_["shards"]["rank"] for s_ in st] == [0, 1]
+            and all(s_["shards"]["n"] == 4 for s_ in st)):
+        raise AssertionError(f"two-ranks: stats {st}")
+    print(f"[two-ranks] 2 ranks x 2 shards on one card, gloo: both exit 0 in "
+          f"{wall:.1f} s wall; rank 0's files byte-identical to the numpy "
+          f"oracle, rank 1 wrote none; distinct {st[0]['distinct_kmers']}, "
+          f"reads {st[0]['reads']} (global); per rank: shard sizes "
+          + " / ".join(str(s_["shards"]["sizes"]) for s_ in st)
+          + ", count " + " / ".join(f"{s_['count_seconds']:.3f}" for s_ in st)
+          + " s, encode "
+          + " / ".join(f"{s_['encode_seconds']:.3f}" for s_ in st)
+          + " s, host Bloom insert "
+          + " / ".join("ran" if "encode.bloom_insert" in s_["phases"]
+                       else "absent" for s_ in st))
+
+
 def main() -> int:
     import torch
 
@@ -931,6 +1179,8 @@ def main() -> int:
         l9 = phase_spill(work, fq, work / "realistic", peak_mb)
         phase_resume(work, fq, work / "realistic")
         phase_database(dev, work, work / "realistic", kmers, counts, reads_1k)
+        l12 = phase_sharded_build(dev, work, fq, work / "realistic", card)
+        phase_sharded_serving(dev, work / "realistic" / "o.res", kmers)
         del kmers, counts
         torch.cuda.empty_cache()
 
@@ -947,6 +1197,8 @@ def main() -> int:
               f"{st['reads'] / secs / 1e6:.4f} Mreads/s, launches {l5}, "
               f"tiers {st['tiers']}; DB and model byte-identical to the "
               f"numpy oracle")
+        phase_two_ranks(work, work / "headline.fastq",
+                        work / "headline_oracle")
     src = {"sort_u64": ("kmcex_tpu_torch/csrc/sort.cu",
                         "kmcex_tpu/count/sort_pallas.py:203",
                         ["kmcex_tpu/count/sort_pallas.py:266"]),
@@ -959,11 +1211,15 @@ def main() -> int:
     for name, (path, repl, also) in src.items():
         rows.append({"name": name, "route": "cuda", "source": path,
                      "replaces": repl, "also_replaces": also,
-                     "launches": l4[name] + l5[name] + l6[name] + l9[name],
+                     "launches": (l4[name] + l5[name] + l6[name] + l9[name]
+                                  + l12["mesh"][name] + l12["forced"][name]),
                      "launches_realistic": l4[name],
                      "launches_run_lsm": l5[name],
                      "launches_model_only": l6[name],
-                     "launches_spill": l9[name], **bench[name]})
+                     "launches_spill": l9[name],
+                     "launches_sharded": l12["mesh"][name],
+                     "launches_sharded_forced": l12["forced"][name],
+                     **bench[name]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,9 @@ USAGE = """\
         -cs<value>         - maximal value of a counter (default: 1023)
         -nh<value>         - number of hash (default: 7)
         -nb<value>         - number of bit array (default: 5)
-        -acc<kind>         - counting backend: device (one GPU)
+        -acc<kind>         - counting backend: device (one GPU) | sharded
+                             (hash-routed mesh: every visible GPU, or
+                             several processes, see KMCEX_NUM_PROCESSES)
         -ckpt<dir>         - checkpoint the count phase into <dir>
                              (rerunning the same command after a crash
                              resumes from the last checkpoint)

@@ -22,8 +22,8 @@ class KParams:
     input_file_name: str = ""
     output_file_name: str = ""
     working_directory: str = "/tmp"
-    # counting backend (CLI flag -acc): "device" = one GPU, the only backend
-    # of this package so far (the JAX package also has "sharded")
+    # counting backend (CLI flag -acc): "device" = one GPU; "sharded" = the
+    # hash-routed mesh of parallel/ (every visible card, or several processes)
     accumulator: str = "device"
     # checkpoint directory for a resumable count phase (CLI flag -ckpt).
     # Empty = no checkpointing.  A run killed mid-count resumes from the
@@ -41,11 +41,10 @@ class KParams:
             raise ValueError(f"ci must be >= 1, got {self.ci}")
         if self.cs < self.ci:
             raise ValueError(f"cs must be >= ci, got cs={self.cs} ci={self.ci}")
-        if self.accumulator != "device":
+        if self.accumulator not in ("device", "sharded"):
             raise ValueError(
-                f"accumulator must be device, got {self.accumulator!r} (the "
-                f"sharded backend belongs to the multi-GPU slice of this "
-                f"package and is not ported yet)")
+                f"accumulator must be device|sharded, got "
+                f"{self.accumulator!r}")
 
     @property
     def max_counter(self) -> int:

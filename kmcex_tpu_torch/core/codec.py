@@ -8,7 +8,7 @@ reverse complement on the packed word (tools.hpp:130-139), canonical k-mer
 Host half: NumPy (``_BASE_LUT`` for the FASTQ path, the string and uint64
 helpers of the query API).  Device half: PyTorch
 on ``int64`` tensors that hold the raw uint64 bit pattern — torch's uint64
-lacks ``>>``, ``<`` and ``minimum`` on the CPU.  Two things differ from the
+lacks ``>>``, ``<`` and ``minimum`` on the CPU.  These things differ from the
 uint64 formulas of the JAX package and are handled here:
 
   * ``>>`` on int64 is arithmetic; ``_srl`` masks it into a logical shift.
@@ -18,6 +18,9 @@ uint64 formulas of the JAX package and are handled here:
     bias ``x ^ (1 << 63)``, which matters for k = 32 keys with bit 63 set.
   * torch has no unsigned ``%``; ``umod`` builds it from a halved dividend
     (hash values use all 64 bits, so half of them are negative as int64).
+  * counts are uint32 bit patterns in int32 tensors (they saturate at
+    2^32-1 as the JAX package's do); ``u32`` widens them before any compare
+    and ``u32_bits`` narrows a sum back.
 """
 
 from __future__ import annotations
@@ -66,6 +69,16 @@ def pack_codes_np(codes: np.ndarray) -> np.ndarray:
 def string_to_u64(s: str) -> int:
     """Reference Tools::kmers2uint64 (tools.hpp:63-76)."""
     return int(pack_codes_np(string_to_codes(s)))
+
+
+def u64_to_string(v: int, k: int) -> str:
+    """Reference Tools::uint64_to_string (tools.hpp:90-100)."""
+    out = bytearray(k)
+    v = int(v)
+    for i in range(k - 1, -1, -1):
+        out[i] = ACGT_BYTES[v & 3]
+        v >>= 2
+    return out.decode()
 
 
 def strings_to_u64(kmers: list[str], k: int) -> np.ndarray:
@@ -117,6 +130,19 @@ def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
     if s == 0:
         return x
     return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def u32(c: torch.Tensor) -> torch.Tensor:
+    """int32 tensors holding uint32 bit patterns (the count column) -> their
+    values as int64.  Every compare or clamp of counts on the device reads
+    them through this."""
+    return c.to(torch.int64) & 0xFFFFFFFF
+
+
+def u32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the same 32 bits as int32 (the inverse
+    of ``u32``)."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
 def revcomp(v: torch.Tensor, k: int) -> torch.Tensor:

@@ -39,9 +39,12 @@ subset, in PyTorch:
     run as a run file, the manifest last.
 
 Keys are int64 tensors holding the uint64 bit pattern (SENTINEL = -1);
-counts are int32 (merged sums saturate at 2^31-1, far above any cs).  On the
-host, run files and ``host_runs`` are ``<u8`` / ``<u4``, u32-saturating; the
-seam (``_spill``) reinterprets the bits and never casts.
+counts are int32 tensors holding the uint32 bit pattern (merged sums
+saturate at 2^32-1, as the JAX package's uint32 counts do; ``codec.u32``
+widens them wherever the device compares or clamps).  The kernels move
+counts as an opaque 32-bit payload.  On the host, run files and
+``host_runs`` are ``<u8`` / ``<u4``, u32-saturating; the seam (``_spill``)
+reinterprets the bits and never casts.
 
 Left out of the JAX module, on purpose:
 
@@ -67,6 +70,7 @@ import numpy as np
 import torch
 
 from kmcex_tpu_torch import native
+from kmcex_tpu_torch.core.codec import u32, u32_bits
 from kmcex_tpu_torch.count.compact import compact_pairs
 from kmcex_tpu_torch.count.extract import (
     SENTINEL,
@@ -80,7 +84,7 @@ from kmcex_tpu_torch.count.sort import merge_sorted_u64
 from kmcex_tpu_torch.utils.device import resolve_device
 from kmcex_tpu_torch.utils.timing import verbose
 
-_I32_MAX = (1 << 31) - 1
+_U32_MAX = 0xFFFFFFFF
 _U64_SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
@@ -98,7 +102,7 @@ def _merge_runs(ka, ca, kb, cb):
     function).  A key then occurs at most twice in the merged sequence, so
     its sum is its own count plus its right neighbour's when that one holds
     the same key — no prefix sum and no boundary scan.  Sums saturate at
-    2^31-1; SENTINEL pads carry count 0 and are masked out."""
+    2^32-1; SENTINEL pads carry count 0 and are masked out."""
     k, c = merge_sorted_u64(ka, ca, kb, cb)
     n = k.numel()
     same_next = torch.zeros(n, dtype=torch.bool, device=k.device)
@@ -106,10 +110,10 @@ def _merge_runs(ka, ca, kb, cb):
     first = torch.ones(n, dtype=torch.bool, device=k.device)
     first[1:] = ~same_next[:-1]
     valid = first & (k != SENTINEL)
-    c64 = c.to(torch.int64)
+    c64 = u32(c)
     nxt = torch.cat([c64[1:], c64.new_zeros(1)])
     seg_sum = c64 + torch.where(same_next, nxt, 0)
-    counts = torch.where(valid, seg_sum, 0).clamp(max=_I32_MAX).to(torch.int32)
+    counts = u32_bits(torch.where(valid, seg_sum, 0).clamp(max=_U32_MAX))
     key = torch.where(valid, k, SENTINEL)
     uniq, counts_c = compact_pairs(key, counts)
     return uniq, counts_c, valid.sum()
@@ -121,14 +125,19 @@ def _final_stats(kmers, counts, ci: int) -> np.ndarray:
     [0]=total pairs >= ci, [1:4]=histogram of counter==ci+i, [4]=n_real,
     [5]=first k-mer, [6]=first count, [7]=last k-mer, [8]=last count."""
     real = kmers != SENTINEL  # contiguous prefix: sentinels sort last
+    counts = u32(counts)
     valid = real & (counts >= ci)
     n_real = real.sum()
     last_i = (n_real - 1).clamp(min=0)
     parts = [valid.sum()]
     parts += [(valid & (counts == ci + i)).sum() for i in range(3)]
-    parts += [n_real, kmers[0], counts[0].to(torch.int64), kmers[last_i],
-              counts[last_i].to(torch.int64)]
+    parts += [n_real, kmers[0], counts[0], kmers[last_i], counts[last_i]]
     return torch.stack(parts).cpu().numpy()
+
+
+def _clamp_cs(c, cs: int):
+    """The count column clamped at ``cs`` (0 < cs <= 2^32-1)."""
+    return u32_bits(u32(c).clamp(max=cs))
 
 
 def _fused_finalize(kmers_list, ci: int, cs: int):
@@ -136,7 +145,7 @@ def _fused_finalize(kmers_list, ci: int, cs: int):
     segment-count, compact, cs-clamp, sizing stats."""
     flat = torch.cat(kmers_list) if len(kmers_list) > 1 else kmers_list[0]
     u, c, _ = segment_compact(sorted_u64(flat))
-    c = c.clamp(max=cs)
+    c = _clamp_cs(c, cs)
     return u, c, _final_stats(u, c, ci)
 
 
@@ -145,7 +154,7 @@ def _drop_compact(u, c, thresh: int):
     ``thresh`` (= ci + bf_num: the Bloom-bound and sub-ci keys) to
     (SENTINEL, 0), recompact with the compaction kernel, and take the
     dropped table's own stats.  Returns (u2, c2, stats2)."""
-    keep = c >= thresh
+    keep = u32(c) >= thresh
     u2, c2 = compact_pairs(torch.where(keep, u, SENTINEL),
                            torch.where(keep, c, 0))
     return u2, c2, _final_stats(u2, c2, thresh)
@@ -429,8 +438,8 @@ class DeviceCountAccumulator:
         """Copy a device run to host RAM and fold it into the host LSM level
         (native two-pointer merge; raw counts — ci/cs apply at finalize).
         The copy is synchronous and pageable; the bits are reinterpreted as
-        ``<u8`` / ``<u4`` (int32 counts are never negative: merged sums
-        saturate at 2^31-1), never cast."""
+        ``<u8`` / ``<u4`` (the int32 count column already holds the uint32
+        bit pattern), never cast."""
         if u.device.type == "cuda":
             torch.cuda.synchronize(u.device)  # time the copy, not the queue
         t = time.time()
@@ -753,7 +762,7 @@ class DeviceCountAccumulator:
 
         return total, hist, hit()
 
-    def finalize_stream(self, ci: int = 1, cs: int = _I32_MAX,
+    def finalize_stream(self, ci: int = 1, cs: int = _U32_MAX,
                         n_chunks: int = 16, bloom_factory=None,
                         drop_low: bool = False):
         """Streaming finalize: returns (total, low_hist, chunk_iter) where
@@ -775,7 +784,7 @@ class DeviceCountAccumulator:
         host run) instead: no Bloom build engages there
         (``self.device_bloom`` stays None, the host inserts) and
         ``drop_low`` is ignored."""
-        cs = min(int(cs), _I32_MAX)
+        cs = min(int(cs), _U32_MAX)
         self.device_bloom = None
         self.table_bytes_to_host = 0
         self.finalize_phases = {}
@@ -796,7 +805,7 @@ class DeviceCountAccumulator:
             if not self.runs:
                 return 0, np.zeros(3, dtype=np.int64), iter(())
             u, c, _ = self.runs[0]
-            c = c.clamp(max=cs)  # clamp before stats, feed and drop
+            c = _clamp_cs(c, cs)  # clamp before stats, feed and drop
             flat = _final_stats(u, c, ci)
         return self._finalize_device_table(u, c, flat, ci, bloom_factory,
                                            drop_low)

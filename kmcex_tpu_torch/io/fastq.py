@@ -8,14 +8,20 @@ kmc_file.cpp:1008-1023).  FASTQ goes through the native C++ segmenter, which
 writes the packed device format straight from ASCII; wrapped FASTA records
 are joined per record by NumPy with a k-1 carry across parse chunks.
 
-Differences from the JAX module: packed batches are the default, no
-byte-range splitting (multi-host input), and no silent NumPy fallback — if the native
-library does not load, iteration raises.
+One uncompressed file can be split into record-aligned byte ranges
+(``split_byte_ranges``), one per process of the multi-process runtime
+(``parallel.distributed``); ``SegmentStream(byte_range=...)`` then parses
+only that window.
+
+One difference from the JAX module: no silent NumPy fallback.
+``use_native=True`` raises if the native library does not load;
+``use_native=False`` asks for the NumPy segmenter by name.
 """
 
 from __future__ import annotations
 
 import gzip
+import os
 import pathlib
 from typing import Iterator
 
@@ -47,6 +53,146 @@ def _open_maybe_gzip(path: str):
     if magic == b"\x1f\x8b":
         return gzip.open(f, "rb")
     return f
+
+
+class _RangeFile:
+    """Read-window view [start, end) of an uncompressed file: ``read`` clamps
+    at ``end``.  Range bounds come from split_byte_ranges, i.e. they are
+    record boundaries, so a consumer parsing this window never sees partial
+    records."""
+
+    def __init__(self, f, start: int, end: int):
+        self._f = f
+        self._end = end
+        f.seek(start)
+
+    def read(self, n: int = -1) -> bytes:
+        remaining = self._end - self._f.tell()
+        if remaining <= 0:
+            return b""
+        if n < 0 or n > remaining:
+            n = remaining
+        return self._f.read(n)
+
+    def peek(self, n: int = 1) -> bytes:
+        pos = self._f.tell()
+        b = self.read(n)
+        self._f.seek(pos)
+        return b
+
+    def close(self) -> None:
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _open_input(path: str, byte_range: tuple[int, int] | None = None):
+    """Open ``path`` for streaming; with ``byte_range`` (record-aligned, from
+    split_byte_ranges) only that window is readable.  Gzipped inputs cannot
+    be range-split (no random access) — resolve them whole-file upstream."""
+    if byte_range is None:
+        return _open_maybe_gzip(path)
+    f = open(path, "rb")
+    if f.read(2) == b"\x1f\x8b":
+        f.close()
+        raise ValueError(
+            f"{path}: gzipped inputs cannot be split by byte range; "
+            "assign whole files per host instead"
+        )
+    return _RangeFile(f, *byte_range)
+
+
+def _record_start_at_or_after(f, pos: int, size: int, is_fasta: bool) -> int:
+    """Absolute offset of the first record start at or after byte ``pos``.
+
+    FASTA: the next line starting with '>'.  FASTQ: the next line starting
+    with '@' whose line-after-next starts with '+' — quality lines may begin
+    with '@' too, but then the line two later is a sequence line, which never
+    begins with '+' (the 4-line record structure disambiguates).  Returns
+    ``size`` when no further record exists.
+
+    Streams forward from ``pos`` keeping the invariant that every line start
+    inside the scan buffer is preceded by its '\\n' inside the buffer (the
+    buffer begins at pos-1), so starts are never missed at chunk seams; the
+    buffer is trimmed to the last newline (or to the first still-unresolved
+    candidate) each round, bounding memory even for genome-long FASTA lines."""
+    if pos <= 0:
+        return 0
+    if pos >= size:
+        return size
+    base = pos - 1  # absolute offset of buf[0]
+    f.seek(base)
+    buf = b""
+    eof = False
+    marker = ord(">") if is_fasta else ord("@")
+    while True:
+        if not eof:
+            chunk = f.read(1 << 20)
+            eof = not chunk
+            buf += chunk
+        arr = np.frombuffer(buf, dtype=np.uint8)
+        nls = np.flatnonzero(arr == 10)
+        starts = nls + 1
+        starts = starts[starts < len(arr)]
+        cand = starts[arr[starts] == marker]
+        if is_fasta:
+            if len(cand):
+                return base + int(cand[0])
+        else:
+            unresolved = -1
+            for c in cand:
+                c = int(c)
+                j1 = buf.find(b"\n", c)
+                j2 = buf.find(b"\n", j1 + 1) if j1 >= 0 else -1
+                if j1 < 0 or j2 < 0 or j2 + 1 >= len(buf):
+                    if eof:
+                        continue  # truncated record at EOF: not a start
+                    unresolved = c
+                    break
+                if buf[j2 + 1] == ord("+"):
+                    return base + c
+            if unresolved >= 0:
+                keep = unresolved - 1  # keep the '\n' preceding the candidate
+                base += keep
+                buf = buf[keep:]
+                continue
+        if eof:
+            return size
+        if len(nls):  # drop fully-scanned lines; keep the final newline
+            keep = int(nls[-1])
+            base += keep
+            buf = buf[keep:]
+        elif len(buf) > 1:  # giant line, no newline yet: keep one byte
+            base += len(buf) - 1
+            buf = buf[-1:]
+
+
+def split_byte_ranges(path: str, n_parts: int) -> list[tuple[int, int]]:
+    """Split one UNCOMPRESSED FASTQ/FASTA file into ``n_parts`` byte ranges
+    aligned to record starts (every range begins exactly at a record header,
+    ranges cover the file disjointly).  This is how one genome-scale input
+    file is divided across hosts without any host parsing the whole thing
+    (the reference feeds one file to kmc, main.cpp:137; multi-host data
+    parallelism over reads is SURVEY.md §5's design).  Gzip → ValueError."""
+    size = os.path.getsize(path)
+    n_parts = max(1, int(n_parts))
+    with open(path, "rb") as f:
+        if f.read(2) == b"\x1f\x8b":
+            raise ValueError(f"{path}: cannot byte-range split gzipped input")
+        f.seek(0)
+        head = f.read(1)
+        is_fasta = head == b">"
+        bounds = [0]
+        for i in range(1, n_parts):
+            target = size * i // n_parts
+            pos = _record_start_at_or_after(f, target, size, is_fasta)
+            bounds.append(max(pos, bounds[-1]))
+        bounds.append(size)
+    return [(bounds[i], bounds[i + 1]) for i in range(n_parts)]
 
 
 def _join_fasta_records(block: np.ndarray, starts: np.ndarray,
@@ -98,7 +244,8 @@ def _join_fasta_records(block: np.ndarray, starts: np.ndarray,
     return joined, rec_starts, rec_ends, n_records, n_bases, new_tail
 
 
-def _iter_seq_spans(path: str, chunk_bytes: int = 1 << 24, k: int = 1):
+def _iter_seq_spans(path: str, chunk_bytes: int = 1 << 24,
+                    byte_range: tuple[int, int] | None = None, k: int = 1):
     """Yield (block_bytes, starts, ends, n_reads, n_bases) sequence spans.
 
     FASTQ: every 4th line starting from line 1, one span per read.
@@ -107,8 +254,10 @@ def _iter_seq_spans(path: str, chunk_bytes: int = 1 << 24, k: int = 1):
     a chunk seam reappears as a new span carrying its previous k-1 bases,
     so n_reads/n_bases (records by header / bases excluding carry) are the
     accurate statistics, not len(starts)/sum(ends-starts).
+    ``byte_range`` restricts parsing to a record-aligned window (see
+    split_byte_ranges).
     """
-    with _open_maybe_gzip(path) as f:
+    with _open_input(path, byte_range) as f:
         head = f.peek(1)[:1] if hasattr(f, "peek") else b""
         if not head:
             head = b"@"
@@ -181,29 +330,47 @@ def _segment_spans(
 
 class SegmentStream:
     """Iterates batches over the input files, tracking read/base
-    statistics.  ``packed=True``: (packed [batch_segs, seg_len/4], maskbits
-    [batch_segs, seg_len/8]) uint8 tuples (seg_len % 8 == 0), the format
-    ``count.extract.extract_canonical_packed`` takes.  ``packed=False``:
-    [batch_segs, seg_len] uint8 codes, one base per byte (255 = pad/N), for
-    ``extract_canonical``."""
+    statistics.  ``packed=False``: [batch_segs, seg_len] uint8 codes, one
+    base per byte (255 = pad/N), for ``extract_canonical``.
+    ``packed=True``: (packed [batch_segs, seg_len/4], maskbits [batch_segs,
+    seg_len/8]) uint8 tuples (seg_len % 8 == 0), the device transfer format
+    ``count.extract.extract_canonical_packed`` takes; the native segmenter
+    writes it straight from ASCII.  ``byte_range`` (one input file only)
+    restricts parsing to a record-aligned window from
+    ``split_byte_ranges``.  ``use_native=False`` selects the NumPy
+    segmenter, the reference the native one is tested against."""
 
     def __init__(self, input_spec: str, k: int, seg_len: int = DEFAULT_SEG_LEN,
-                 batch_segs: int = DEFAULT_BATCH_SEGS, packed: bool = True):
+                 batch_segs: int = DEFAULT_BATCH_SEGS, use_native: bool = True,
+                 packed: bool = False,
+                 byte_range: tuple[int, int] | None = None):
         if packed and seg_len % 8:
             raise ValueError("packed batches need seg_len % 8 == 0")
-        self.packed = packed
+        if byte_range is not None and len(resolve_inputs(input_spec)) != 1:
+            raise ValueError("byte_range applies to a single input file")
         self.input_spec = input_spec
         self.k = k
         self.seg_len = seg_len
         self.batch_segs = batch_segs
+        self.use_native = use_native
+        self.packed = packed
+        self.byte_range = byte_range
         self.reads = 0
         self.bases = 0
 
     def __iter__(self) -> Iterator:
-        from kmcex_tpu_torch import native
+        if self.use_native:
+            from kmcex_tpu_torch import native
 
-        native.lib()  # raises if the native library cannot be built/loaded
-        yield from self._iter_native(native)
+            native.lib()  # raises if the library cannot be built or loaded
+            yield from self._iter_native(native)
+        elif self.packed:
+            from kmcex_tpu_torch.count.extract import pack_codes_np
+
+            for codes in self._iter_numpy():
+                yield pack_codes_np(codes)
+        else:
+            yield from self._iter_numpy()
 
     def _new_buf(self):
         if self.packed:
@@ -227,7 +394,7 @@ class SegmentStream:
         buf = self._new_buf()
         row = 0
         for path in resolve_inputs(self.input_spec):
-            with _open_maybe_gzip(path) as f:
+            with _open_input(path, self.byte_range) as f:
                 head = f.peek(1)[:1] if hasattr(f, "peek") else b""
                 is_fasta = head == b">"
                 if is_fasta:
@@ -287,7 +454,7 @@ class SegmentStream:
         from kmcex_tpu_torch.count.extract import pack_codes_np
 
         for block, starts, ends, n_reads, n_bases in _iter_seq_spans(
-                path, k=self.k):
+                path, byte_range=self.byte_range, k=self.k):
             self.reads += n_reads
             self.bases += n_bases
             segs = _segment_spans(block, starts, ends, self.k, self.seg_len)
@@ -309,11 +476,35 @@ class SegmentStream:
                     row = 0
         return buf, row
 
+    def _iter_numpy(self) -> Iterator[np.ndarray]:
+        pend: list[np.ndarray] = []
+        pend_rows = 0
+        for path in resolve_inputs(self.input_spec):
+            for block, starts, ends, n_reads, n_bases in _iter_seq_spans(
+                    path, byte_range=self.byte_range, k=self.k):
+                self.reads += n_reads
+                self.bases += n_bases
+                segs = _segment_spans(block, starts, ends, self.k, self.seg_len)
+                if len(segs) == 0:
+                    continue
+                pend.append(segs)
+                pend_rows += len(segs)
+                while pend_rows >= self.batch_segs:
+                    cat = pend[0] if len(pend) == 1 else np.concatenate(pend)
+                    yield cat[: self.batch_segs]
+                    rest = cat[self.batch_segs :]
+                    pend = [rest] if len(rest) else []
+                    pend_rows = len(rest)
+        if pend_rows:
+            cat = pend[0] if len(pend) == 1 else np.concatenate(pend)
+            pad = np.full((self.batch_segs - pend_rows, self.seg_len), 255, dtype=np.uint8)
+            yield np.concatenate([cat, pad])
+
 
 def segment_batches(input_spec: str, k: int, seg_len: int = DEFAULT_SEG_LEN,
                     batch_segs: int = DEFAULT_BATCH_SEGS) -> SegmentStream:
     """The unpacked code-batch stream (the host accumulator's input)."""
-    return SegmentStream(input_spec, k, seg_len, batch_segs, packed=False)
+    return SegmentStream(input_spec, k, seg_len, batch_segs)
 
 
 def sniff_read_length(input_spec: str, max_reads: int = 10000) -> int:

@@ -1,4 +1,4 @@
-"""Device-side Bloom-bank build (single device).
+"""Device-side Bloom-bank build, on one device or across a mesh.
 
 The reference inserts low-count k-mers into the Bloom pairs with atomic
 scatter-ORs on the host (kmodel.hpp:473-506) — commutative and order-free,
@@ -7,9 +7,7 @@ host schedule entirely.  Here the (nh-1) main-filter and (nh-2) back-filter
 probe positions are computed on the device straight from the counted table
 (murmur over the regenerated ASCII form, exactly the host/native seed
 schedule) and set in a device bitmap; only the FINISHED filter bytes cross
-to the host.  The counterpart of the JAX package's ``model/device_bloom.py``
-without its mesh variant (``ShardedDeviceBloomBuilder`` waits for
-``parallel/``).
+to the host.  The counterpart of the JAX package's ``model/device_bloom.py``.
 
 Bitmap: ONE BYTE PER BIT, all 2*bf_num filter tables at byte-aligned
 offsets in one flat tensor, so a tile needs one scatter and duplicate
@@ -21,6 +19,14 @@ to an out-of-range index that its scatter drops, this one SELECTS THE LIVE
 ROWS FIRST (boolean-mask indexing): torch raises on an index out of range,
 and the rows that feed no filter — on a real spectrum one key in five, with
 ci > 1 many more — are never hashed.  The price is one device sync a tile.
+
+The mesh variant (``ShardedDeviceBloomBuilder``): every shard sets the bits
+of its own disjoint keys, the bitmaps of one process are OR-ed, and
+``all_reduce(MAX)`` joins the processes.  Left out of the JAX module, on
+purpose: its OR is ``min(psum, 1)`` on a uint8 bitmap, which wraps at 256
+shards, hence its 255-shard limit (device_bloom.py:140-144, 286-289); both
+exist only because the TPU compile helper lowers sum reductions alone.  MAX
+is exact at any mesh size, so neither is here.
 """
 
 from __future__ import annotations
@@ -63,12 +69,12 @@ def _tile_positions(ut, ct, cs: int, lens, offs, seeds_main, seeds_back,
     clamps when it writes the database), which matters when cs < ci +
     bf_num.  ``lens`` / ``offs`` are int64 tensors of the 2*bf_num table
     bit-lengths and bitmap offsets, (main_i, back_i) interleaved."""
-    ct = ct.clamp(max=cs)
+    ct = codec.u32(ct).clamp(max=cs)
     live = (ut != SENTINEL) & (ct >= ci) & (ct < ci + bf_num)
     keys = ut[live]  # live rows only (module docstring)
     if keys.numel() == 0:
         return keys
-    pair = (ct[live] - ci).to(torch.int64)
+    pair = ct[live] - ci
     bl, tl = murmur_pre(codec.ascii_bytes(keys, k))
     h_main = murmur_eval(bl, tl, k, seeds_main)
     blm, tlm = murmur_pre(codec.ascii_bytes(codec.middle_kmer(keys, k), k - 2))
@@ -177,3 +183,58 @@ class DeviceBloomBuilder:
                     raise ValueError("bank sized from a different histogram")
                 arr[:] = data[off : off + nbytes]
                 off += nbytes
+
+
+class ShardedDeviceBloomBuilder(DeviceBloomBuilder):
+    """Bloom bank built across a shard mesh (``parallel.sharded.ShardMesh``):
+    each shard sets its disjoint partition's probe bits, the bitmaps are
+    OR-ed into the first local device's and, when the mesh spans processes,
+    joined by ``all_reduce(MAX)``; every rank then holds the finished bytes.
+    Feed it the per-shard merged runs BEFORE the table drains to the host.
+    With ``world > 1`` ``global_low_hist`` and ``feed_table_sharded`` are
+    collectives: every rank calls them."""
+
+    def __init__(self, mesh, k: int, ci: int, cs: int, n_hash: int, low_hist):
+        super().__init__(k, ci, cs, n_hash, low_hist, device=mesh.devices[0])
+        self.mesh = mesh
+        self._low_hist = np.asarray(low_hist)
+
+    def feed_table_sharded(self, us, cs_) -> None:
+        """``us[l]`` / ``cs_[l]``: local shard ``l``'s sorted unique run
+        (int64 keys, int32 counts, SENTINEL-padded) on its device, or None
+        for a shard that holds nothing."""
+        helpers = {self.device: self}
+        for dev, u, c in zip(self.mesh.devices, us, cs_):
+            if u is None:
+                continue
+            if dev not in helpers:
+                helpers[dev] = DeviceBloomBuilder(
+                    self.k, self.ci, self.cs, self.n_hash, self._low_hist,
+                    device=dev)
+            helpers[dev].feed_table(u, c, u.shape[0])
+        for dev, h in helpers.items():
+            if h is not self:
+                self._bitmap |= h._bitmap.to(self.device)
+        if self.mesh.world > 1:
+            from kmcex_tpu_torch.parallel import comm
+
+            comm.all_reduce_max_(self._bitmap, self.mesh.group)
+        self.start_pull()
+
+    @staticmethod
+    def global_low_hist(mesh, us, cs_, ci: int, cs: int) -> np.ndarray:
+        """Global pass-1 histogram (cs-clamped counter == ci + i, i < 3) of
+        a sharded table: a SUM of three int64 over the shards."""
+        hist = np.zeros(3, dtype=np.int64)
+        for u, c in zip(us, cs_):
+            if u is None:
+                continue
+            real = u != SENTINEL
+            cc = codec.u32(c).clamp(max=cs)
+            hist += torch.stack([(real & (cc == ci + i)).sum()
+                                 for i in range(3)]).cpu().numpy()
+        if mesh.world > 1:
+            from kmcex_tpu_torch.parallel import comm
+
+            hist = comm.all_reduce_sum(hist, mesh.group, mesh.devices[0])
+        return hist

@@ -228,6 +228,21 @@ class BitArrayEncoder:
         return rk[:n], ro[:n]
 
 
+def encode_bitarrays(
+    kmers: np.ndarray, occs: np.ndarray, k: int, n_bits: int, n_hash: int,
+    occ2bin: np.ndarray, bit1: np.ndarray, bit2: np.ndarray, km_bit_size: int,
+    km_back: np.ndarray, back_bit_len: int, back_num_hash: int,
+    bucket_size: int = 1 << 18, n_threads: int = 0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """One-shot encode; returns (rest_kmers, rest_occs)."""
+    enc = BitArrayEncoder(
+        k, n_bits, n_hash, occ2bin, bit1, bit2, km_bit_size, km_back,
+        back_bit_len, back_num_hash, bucket_size, n_threads,
+    )
+    enc.feed(kmers, occs)
+    return enc.finish()
+
+
 def segment_buffer(
     data: np.ndarray, is_fasta: bool, phase: int, k: int, seg_len: int,
     out_rows: np.ndarray,

@@ -31,8 +31,9 @@ Left out of the JAX module, on purpose:
   * fixed tile shapes and the zero padding of a short tile: torch runs
     eagerly, so a short tile is just a shorter tensor.  ``TILE``, ``GROUP``
     and ``RESOLVE_TILE`` stay as bounds on device memory;
-  * ``sharding`` / ``in_sharding``: the multi-device server waits for
-    ``parallel/serve.py``.
+  * ``sharding`` / ``in_sharding``: the multi-device server
+    (``parallel/serve.py``) holds one ``DeviceKModel`` per device and
+    slices the batch itself.
 """
 
 from __future__ import annotations

@@ -301,5 +301,9 @@ def test_cli_parses_ckpt_and_refuses_sharded(tmp_path):
                                     "b", "c"])
     assert (p.ckpt_dir, p.k, p.t) == ("/x/y", 21, 2)
     assert torch_cli.parse_parameters(["kmcex", "a", "b", "c"]).ckpt_dir == ""
+    # -accsharded is a backend of the port now; an unknown kind is refused
+    # with the known ones named
+    p = torch_cli.parse_parameters(["kmcex", "-accsharded", "a", "b", "c"])
+    assert p.accumulator == "sharded"
     with pytest.raises(ValueError, match="sharded"):
-        torch_cli.parse_parameters(["kmcex", "-accsharded", "a", "b", "c"])
+        torch_cli.parse_parameters(["kmcex", "-acchost", "a", "b", "c"])

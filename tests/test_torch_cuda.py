@@ -444,7 +444,8 @@ def test_count_encode_model_only_cuda_equals_cpu(dev, tmp_path, monkeypatch):
     for name, d, kwargs, env in runs:
         monkeypatch.setenv("KMCEX_DEVICE_BLOOM", env)
         kernels.reset_launches()
-        km, _, _, stats = count_encode(str(fq), k=31, ci=2, device=d, **kwargs)
+        km, _, _, stats = count_encode(str(fq), k=31, ci=2, device=d,
+                                       keep_pairs=False, **kwargs)
         launches[name] = kernels.LAUNCHES["compact_pairs"]
         km.save(tmp_path / name)
         saved[name] = [(tmp_path / name / fn).read_bytes()
@@ -502,7 +503,9 @@ def test_forced_spill_cuda_equals_unspilled(dev, tmp_path, route, disk_bytes):
 
 def test_merge_runs_unique_cuda_equals_cpu(dev):
     """device_lsm._merge_runs on the card equals its CPU run on sorted
-    unique runs with ties, pads and counts near the int32 clamp."""
+    unique runs with ties, pads and counts whose sums pass 2^31 (the count
+    column holds uint32 bit patterns and saturates at 2^32-1)."""
+    from kmcex_tpu_torch.core.codec import u32
     from kmcex_tpu_torch.count import device_lsm
 
     rng = np.random.default_rng(4)
@@ -519,4 +522,102 @@ def test_merge_runs_unique_cuda_equals_cpu(dev):
     got = device_lsm._merge_runs(*(t.to(dev) for t in a + b))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
-    assert int(got[1].min()) >= 0
+    top = int(u32(got[1]).max())
+    assert (1 << 31) <= top <= 0xFFFFFFFF
+
+
+# ----------------------------------------------------- the multi-shard package
+def _mesh_batches(seed=5, n=6, rows=64, L=96):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        codes = rng.integers(0, 4, size=(rows, L)).astype(np.uint8)
+        codes[rng.random(codes.shape) < 0.02] = 255
+        out.append(codes)
+    return out
+
+
+@pytest.mark.parametrize("tiers", ["one_tier", "forced"])
+def test_sharded_mesh_on_the_card_equals_cpu_mesh(dev, tiers):
+    """Four logical shards on the one card against four CPU shards: the
+    same table; with the tiers forced every kernel is launched, per
+    shard."""
+    from kmcex_tpu_torch.parallel import sharded
+
+    k, rows, L = 21, 64, 96
+    kw = ({} if tiers == "one_tier" else
+          dict(raw_tier_elems=3000, spill_threshold=1 << 13,
+               disk_spill_bytes=0))
+    tables = {}
+    for name, d in (("cpu", "cpu"), ("cuda", dev)):
+        mesh = sharded.make_mesh(devices=[d] * 4)
+        acc = sharded.ShardedCountAccumulator(mesh, k, rows // 4, L, **kw)
+        kernels.reset_launches()
+        for codes in _mesh_batches():
+            acc.add_batch(codes)
+        tables[name] = acc.finalize(ci=1, cs=1023)
+        if name == "cuda":
+            assert kernels.LAUNCHES["sort_u64"] >= 4
+            assert kernels.LAUNCHES["compact_pairs"] >= 4
+            if tiers == "forced":
+                assert kernels.LAUNCHES["merge_sorted_u64"] >= 4
+                assert acc.tier_events["host_spills"] > 0
+        else:
+            assert sum(kernels.LAUNCHES.values()) == 0
+    assert np.array_equal(tables["cpu"][0], tables["cuda"][0])
+    assert np.array_equal(tables["cpu"][1], tables["cuda"][1])
+    assert len(tables["cuda"][0]) > 10000
+
+
+def test_sharded_bloom_and_server_on_the_card(dev, tmp_path):
+    """count_encode(accumulator="sharded") on a 4-shard mesh of the card:
+    the mesh Bloom build runs, the model equals the CPU mesh's, and the
+    sharded server's answers equal the host's."""
+    from kmcex_tpu_torch.count.pipeline import count_encode
+    from kmcex_tpu_torch.parallel import sharded
+    from kmcex_tpu_torch.parallel.serve import make_server
+
+    rng = np.random.default_rng(8)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    genome = rng.integers(0, 4, 30000)
+    fq = tmp_path / "r.fastq"
+    with open(fq, "wb") as f:
+        for i, s in enumerate(rng.integers(0, len(genome) - 100, 3000)):
+            f.write(b"@r%d\n%s\n+\n%s\n"
+                    % (i, acgt[genome[s : s + 100]].tobytes(), b"I" * 100))
+    saved = {}
+    for name, d in (("cpu", "cpu"), ("cuda", dev)):
+        km, kk, cc, st = count_encode(
+            str(fq), k=31, batch_segs=512, accumulator="sharded",
+            mesh=sharded.make_mesh(devices=[d] * 4))
+        assert "encode.bloom_insert" not in st.phases
+        km.save(tmp_path / name)
+        saved[name] = [(tmp_path / name / fn).read_bytes()
+                       for fn in ("header", "km.bin", "rest.bin")]
+    assert saved["cpu"] == saved["cuda"]
+    q = np.concatenate([kk[::7], rng.integers(0, 1 << 62, 5000,
+                                              dtype=np.uint64)])
+    srv = make_server(km, devices=[dev] * 4)
+    assert np.array_equal(srv.kmer_to_occ(q), km.kmer_to_occ_u64(q))
+
+
+def test_uint32_counts_on_the_card(dev):
+    """The merge step on the card carries counts as 32 unsigned bits: sums
+    cross 2^31 and saturate at 2^32-1, equal to the CPU's."""
+    from kmcex_tpu_torch.count import device_lsm
+
+    ka = np.array([1, 2, 3, 4, -1, -1], np.int64)
+    ca = np.array([0xFFFFFFF0, 1 << 31, 0x7FFFFFFF, 5, 0, 0], np.uint32)
+    kb = np.array([1, 2, 3, 9, -1, -1], np.int64)
+    cb = np.array([0x20, 1 << 31, 1, 7, 0, 0], np.uint32)
+    out = {}
+    for name, d in (("cpu", "cpu"), ("cuda", dev)):
+        t = [torch.from_numpy(x).to(d) for x in
+             (ka, ca.view(np.int32), kb, cb.view(np.int32))]
+        u, c, nu = device_lsm._merge_runs(*t)
+        out[name] = (u.cpu().numpy(), c.cpu().numpy().view(np.uint32), int(nu))
+    assert out["cuda"][2] == out["cpu"][2] == 5
+    assert np.array_equal(out["cuda"][0], out["cpu"][0])
+    assert np.array_equal(out["cuda"][1], out["cpu"][1])
+    assert out["cuda"][1][:5].tolist() == [0xFFFFFFFF, 0xFFFFFFFF, 1 << 31,
+                                           5, 7]

@@ -222,7 +222,7 @@ def test_count_encode_model_identical_to_jax(config, ci, route, reads,
         monkeypatch.setenv("KMCEX_RAW_TIER_ELEMS", "2000")
     monkeypatch.setenv("KMCEX_DEVICE_BLOOM",
                        "0" if config == "host_insert" else "1")
-    kwargs = dict(k=19, ci=ci, device="cpu")
+    kwargs = dict(k=19, ci=ci, device="cpu", keep_pairs=False)
     if route == "run_lsm":
         kwargs["batch_segs"] = 64  # several batches, so several collapses
     if config != "model_only":
@@ -278,8 +278,9 @@ def test_narrow_cs_clamped_membership(tmp_path):
     truth = j_get_model(ci, cs, 7, 5)
     truth.init_from_pairs(kk, cc, k)
     truth.save(tmp_path / "truth")
-    for name, kwargs in (("db", dict(db_path=str(tmp_path / "o.res"))),
-                         ("model_only", {}),
+    for name, kwargs in (("db", dict(db_path=str(tmp_path / "o.res"),
+                                     keep_pairs=False)),
+                         ("model_only", dict(keep_pairs=False)),
                          ("keep", dict(keep_pairs=True))):
         km, _, _, _ = count_encode(str(fq), k=k, ci=ci, cs=cs, device="cpu",
                                    **kwargs)
@@ -293,7 +294,8 @@ def test_oversized_bitmap_takes_the_host_build(reads, jax_models, tmp_path,
     same, nothing is dropped, and KMCEX_VERBOSE=1 says so in one line."""
     monkeypatch.setattr(device_bloom, "MAX_BITMAP_BYTES", 64)
     monkeypatch.setenv("KMCEX_VERBOSE", "1")
-    km, _, _, stats = count_encode(str(reads), k=19, ci=1, device="cpu")
+    km, _, _, stats = count_encode(str(reads), k=19, ci=1, device="cpu",
+                                   keep_pairs=False)
     _same_model(km, jax_models[1][0], tmp_path)
     assert "encode.bloom_insert" in stats.phases
     assert "finalize.drop_low" not in stats.phases

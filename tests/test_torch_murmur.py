@@ -125,7 +125,8 @@ def test_host_codec_helpers_match_jax(k):
                                   jcodec.canonical_np(v, k))
     np.testing.assert_array_equal(_u(codec.canonical(_t(v), k)),
                                   jcodec.canonical_np(v, k))
-    strings = [jcodec.u64_to_string(int(x), k) for x in v[:50]]
+    strings = [codec.u64_to_string(int(x), k) for x in v[:50]]
+    assert strings == [jcodec.u64_to_string(int(x), k) for x in v[:50]]
     np.testing.assert_array_equal(codec.strings_to_u64(strings, k), v[:50])
     assert codec.string_to_u64(strings[0]) == jcodec.string_to_u64(strings[0])
     np.testing.assert_array_equal(codec.string_to_codes("ACGTNacgt"),

@@ -109,12 +109,17 @@ bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "kmcex_tpu")]
 assert not bad, bad
 for name in ("core.murmur", "model.device_bloom", "query.device_model",
              "core.signature", "core.codec_mw", "io.kmc_db", "query.annotate",
-             "count.counter", "count.device_lsm", "count.pipeline"):
+             "count.counter", "count.device_lsm", "count.pipeline",
+             "parallel.comm", "parallel.sharded", "parallel.serve",
+             "parallel.distributed"):
     assert "kmcex_tpu_torch." + name in sys.modules, name
 assert kmcex_tpu_torch.DeviceKModel and kmcex_tpu_torch.load_model
 from kmcex_tpu_torch.io.kmc_db import KMCReader, write_kmc1, write_kmc2
 from kmcex_tpu_torch.count.pipeline import count_fastq, count_encode, run
 from kmcex_tpu_torch.native import merge_runs, murmur64, segment_buffer
+from kmcex_tpu_torch.native import encode_bitarrays
+from kmcex_tpu_torch.parallel.serve import make_server
+from kmcex_tpu_torch.parallel.distributed import distributed_count_fastq
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -140,3 +145,117 @@ def test_default_device_raises_without_cuda(fastq, tmp_path, monkeypatch):
                              output_file_name=str(tmp_path / "o.res"),
                              working_directory=str(tmp_path)))
     assert not (tmp_path / "o.res.kmc_suf").exists()
+
+
+# ------------------------------------------------- the reference's call surface
+def test_count_encode_signature_is_the_reference(fastq, tmp_path):
+    """Same positional order and defaults as the JAX package's count_encode
+    (the port adds ``device``, keyword only): both called with the same nine
+    positional arguments, and with the input alone, give the same table,
+    model and statistics."""
+    import inspect
+
+    from kmcex_tpu.count import pipeline as jpipe
+    from kmcex_tpu_torch.count import pipeline as tpipe
+
+    jsig = inspect.signature(jpipe.count_encode).parameters
+    tsig = inspect.signature(tpipe.count_encode).parameters
+    assert list(tsig)[:-1] == list(jsig) and list(tsig)[-1] == "device"
+    assert tsig["device"].kind is inspect.Parameter.KEYWORD_ONLY
+    for name in jsig:
+        assert tsig[name].default == jsig[name].default, name
+    jfq = inspect.signature(jpipe.count_fastq).parameters
+    tfq = inspect.signature(tpipe.count_fastq).parameters
+    assert list(tfq)[:-1] == list(jfq) and list(tfq)[-1] == "device"
+
+    def model_bytes(km, d):
+        km.save(d)
+        return [(d / f).read_bytes() for f in ("header", "km.bin", "rest.bin")]
+
+    nine = (str(fastq), 21, 2, 300, 6, 4, 64, 128, True)
+    for i, args in enumerate((nine, (str(fastq),))):
+        wkm, wk, wc, wst = jpipe.count_encode(*args)
+        gkm, gk, gc, gst = tpipe.count_encode(*args, device="cpu")
+        assert gk is not None and len(gk) > 500  # keep_pairs defaults True
+        np.testing.assert_array_equal(gk, wk)
+        np.testing.assert_array_equal(gc, wc)
+        assert (model_bytes(gkm, tmp_path / f"t{i}")
+                == model_bytes(wkm, tmp_path / f"j{i}"))
+        assert (gst.reads, gst.bases, gst.distinct_kmers) == \
+            (wst.reads, wst.bases, wst.distinct_kmers)
+    # the tenth positional argument is db_path in both
+    for mod, name, kw in ((jpipe, "j", {}), (tpipe, "t", {"device": "cpu"})):
+        mod.count_encode(*nine[:8], False, str(tmp_path / f"db_{name}"), **kw)
+    for ext in (".kmc_pre", ".kmc_suf"):
+        assert ((tmp_path / f"db_j{ext}").read_bytes()
+                == (tmp_path / f"db_t{ext}").read_bytes())
+
+
+def test_kparams_accepts_sharded_and_names_the_backends():
+    from kmcex_tpu_torch.config import KParams
+
+    assert KParams(accumulator="sharded").accumulator == "sharded"
+    with pytest.raises(ValueError, match="device|sharded"):
+        KParams(accumulator="host")
+
+
+def test_phases_report_and_device_trace(fastq, tmp_path, monkeypatch):
+    """Phases.report prints what the JAX package's prints; device_trace is a
+    no-op without KMCEX_TRACE_DIR and writes a Chrome trace of count_encode
+    with it."""
+    import json
+
+    from kmcex_tpu.utils import timing as jtiming
+    from kmcex_tpu_torch.count.pipeline import count_encode
+    from kmcex_tpu_torch.utils import timing
+
+    a, b = timing.Phases(), jtiming.Phases()
+    for ph in (a, b):
+        ph.add("stream+extract", 1.25)
+        ph.add("merge+stats", 0.5)
+        ph.add("stream+extract", 0.25)
+    assert a.report() == b.report()
+    assert "(sum of phases)" in a.report() and "2.000s" in a.report()
+
+    monkeypatch.delenv("KMCEX_TRACE_DIR", raising=False)
+    with timing.device_trace("nothing"):
+        pass
+    assert list(tmp_path.iterdir()) == []
+    monkeypatch.setenv("KMCEX_TRACE_DIR", str(tmp_path / "traces"))
+    count_encode(str(fastq), k=21, keep_pairs=False, device="cpu")
+    trace = json.loads((tmp_path / "traces" / "count_encode.json").read_text())
+    assert len(trace["traceEvents"]) > 10
+
+
+def test_native_encode_bitarrays_equals_jax():
+    """The one-shot encode against the JAX package's binding, and against
+    the chunked BitArrayEncoder it wraps."""
+    from kmcex_tpu import native as jnative
+    from kmcex_tpu_torch import native as tnative
+
+    rng = np.random.default_rng(21)
+    k, n_bits, n_hash = 21, 3, 4
+    kmers = np.unique(rng.integers(0, 1 << 42, 3000, dtype=np.uint64))
+    occs = rng.integers(1, 30, len(kmers)).astype(np.uint32)
+    occ2bin = np.arange(64, dtype=np.uint32)
+    km_bit = 4096
+    nbytes = n_bits * km_bit // 8
+
+    def run(fn):
+        b1, b2 = np.zeros(nbytes, np.uint8), np.zeros(nbytes, np.uint8)
+        back = np.zeros(2048, np.uint8)
+        rest = fn(kmers, occs, k, n_bits, n_hash, occ2bin, b1, b2, km_bit,
+                  back, 2048 * 8, n_hash - 2, 1 << 10, 2)
+        return b1, b2, back, rest[0], rest[1]
+
+    def chunked(kmers, occs, *args):
+        enc = tnative.BitArrayEncoder(*args)
+        for a in range(0, len(kmers), 700):
+            enc.feed(kmers[a : a + 700], occs[a : a + 700])
+        return enc.finish()
+
+    want = run(jnative.encode_bitarrays)
+    assert want[0].any() and len(want[3]) > 0  # something encoded, some rest
+    for fn in (tnative.encode_bitarrays, chunked):
+        for g, w in zip(run(fn), want):
+            np.testing.assert_array_equal(g, w)

@@ -14,6 +14,7 @@ from kmcex_tpu.core import codec as jcodec
 from kmcex_tpu.model.kmodel import get_model as j_get_model
 from kmcex_tpu.query import device_model as j_dm
 from kmcex_tpu_torch import DeviceKModel, KModel, load_model
+from kmcex_tpu_torch.core import codec
 from kmcex_tpu_torch.query import device_model as t_dm
 
 CONFIGS = {
@@ -206,7 +207,7 @@ def test_cuckoo_tables_match_jax(n):
 
 def test_string_and_list_inputs(models):
     km, t_files, _, can, _, _ = models["k31_ci1"]
-    strings = [jcodec.u64_to_string(int(x), 31) for x in can[:40]]
+    strings = [codec.u64_to_string(int(x), 31) for x in can[:40]]
     assert t_files.kmer_to_occ(strings[0]) == km.kmer_to_occ(strings[0])
     assert t_files.kmer_to_occ(strings) == km.kmer_to_occ(strings)
     assert t_files.kmer_to_occ(tuple(strings[:3])) == km.kmer_to_occ(strings[:3])

@@ -93,14 +93,18 @@ def _merge_cases():
            np.array([1, 2, 3, 4], np.uint32))
     yield "high_bit", top, (np.array([1 << 63, PAD], np.uint64),
                             np.array([7, 0], np.uint32))
-    # counts near the clamps: the JAX merge saturates at 2^32-1 and the port
-    # at 2^31-1 (both far above any cs), so the comparison goes through a
-    # cs clamp first, as every consumer of the table does
+    # sums that cross 2^31 and 2^32: both packages hold the count column as
+    # 32 unsigned bits and saturate at 2^32-1
     big = (np.array([10, 20, 30, PAD], np.uint64),
            np.array([(1 << 31) - 2, 1 << 30, 5, 0], np.uint32))
     yield "near_clamp", big, (np.array([10, 20, 40, PAD], np.uint64),
                               np.array([(1 << 31) - 3, 1 << 30, 9, 0],
                                        np.uint32))
+    huge = (np.array([1, 2, 3, 4, PAD], np.uint64),
+            np.array([0xFFFFFFF0, 1 << 31, 0xFFFFFFFF, 3_000_000_000, 0],
+                     np.uint32))
+    yield "cross_2_32", huge, (np.array([1, 2, 3, 5, PAD], np.uint64),
+                               np.array([0x20, 1 << 31, 1, 7, 0], np.uint32))
 
 
 @pytest.mark.parametrize("name,a,b", list(_merge_cases()),
@@ -116,16 +120,13 @@ def test_merge_runs_equals_jax_on_unique_runs(name, a, b):
         torch.from_numpy(kb.view(np.int64)), torch.from_numpy(cb.view(np.int32)))
     assert int(gn) == int(wn)
     np.testing.assert_array_equal(gu.numpy().view(np.uint64), np.asarray(wu))
-    cs = 1023
-    np.testing.assert_array_equal(
-        np.minimum(gc.numpy().view(np.uint32), cs),
-        np.minimum(np.asarray(wc), cs))
+    np.testing.assert_array_equal(gc.numpy().view(np.uint32), np.asarray(wc))
     if name == "near_clamp":
-        assert gc.numpy()[0] == (1 << 31) - 1  # saturated, never negative
-        assert (gc.numpy() >= 0).all()
-    else:
-        np.testing.assert_array_equal(gc.numpy().view(np.uint32),
-                                      np.asarray(wc))
+        assert gc.numpy().view(np.uint32)[0] == (1 << 32) - 5  # past 2^31
+    if name == "cross_2_32":
+        np.testing.assert_array_equal(
+            gc.numpy().view(np.uint32)[:5],
+            [0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF, 3_000_000_000, 7])
 
 
 def test_native_merge_runs_equals_jax_and_takes_memmaps(tmp_path):
@@ -519,9 +520,15 @@ def test_count_fastq_equals_jax(fastq, accumulator):
 
 
 def test_count_fastq_sharded_names_the_later_slice(fastq):
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tpipe.count_fastq(fastq, accumulator="sharded", device="cpu")
-    with pytest.raises(ValueError):
+    """The sharded backend is ported: on the one CPU shard ``device="cpu"``
+    names it gives the device accumulator's table; an unknown backend is
+    refused with the known ones named."""
+    gk, gc, _ = tpipe.count_fastq(fastq, k=21, batch_segs=256,
+                                  accumulator="sharded", device="cpu")
+    wk, wc, _ = tpipe.count_fastq(fastq, k=21, batch_segs=256, device="cpu")
+    np.testing.assert_array_equal(gk, wk)
+    np.testing.assert_array_equal(gc, wc)
+    with pytest.raises(ValueError, match="sharded"):
         tpipe.count_fastq(fastq, accumulator="nope", device="cpu")
 
 
@@ -559,3 +566,80 @@ def test_count_encode_spilled_equals_jax(fastq, tmp_path, monkeypatch):
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
         assert got[3] == want[3] == base[3], route
+
+
+# ------------------------------------------- counts as 32 unsigned bits
+def _big_count_runs():
+    """Three unique runs whose per-key sums cross 2^31, reach exactly
+    2^32-1, and pass 2^32 (which saturates)."""
+    keys = np.array([5, 9, 12, 40, 77, 1 << 63], np.uint64)
+    runs = [np.array([1 << 30, 0x7FFFFFFF, 0xFFFFFFF0, 1, 3_000_000_000, 7]),
+            np.array([1 << 30, 1, 0x0F, 2, 2_000_000_000, 0x7FFFFFFF]),
+            np.array([1 << 31, 0x7FFFFFFF, 1, 3, 5, 0x7FFFFFFF])]
+    pad_k = np.full(2, PAD)
+    pad_c = np.zeros(2, np.uint32)
+    return [(np.concatenate([keys, pad_k]),
+             np.concatenate([c.astype(np.uint32), pad_c])) for c in runs]
+
+
+@pytest.mark.parametrize("ci,cs", [(1, 0xFFFFFFFF), (1, 1 << 31),
+                                   (3, 3_500_000_000), (2, 1023)])
+def test_counts_above_2_31_equal_jax(ci, cs):
+    """Repair of the int32 saturation: device runs whose sums cross 2^31 and
+    2^32 merged by both accumulators; finalize and finalize_stream (table,
+    total, low histogram) equal, saturating at 2^32-1."""
+    def load(acc, to_dev):
+        for ku, kc in _big_count_runs():
+            acc.runs.append((to_dev(ku, np.int64), to_dev(kc, np.int32), 8))
+
+    def to_jax(a, _):
+        return jnp.asarray(a)
+
+    def to_torch(a, signed):
+        return torch.from_numpy(a.view(signed))
+
+    jacc, tacc = JaxAcc(15), TorchAcc(15, device="cpu")
+    load(jacc, to_jax)
+    load(tacc, to_torch)
+    wk, wc = jacc.finalize(ci=ci, cs=cs)
+    gk, gc = tacc.finalize(ci=ci, cs=cs)
+    np.testing.assert_array_equal(gk, wk)
+    np.testing.assert_array_equal(gc, wc)
+    jacc, tacc = JaxAcc(15), TorchAcc(15, device="cpu")
+    load(jacc, to_jax)
+    load(tacc, to_torch)
+    _assert_same(_drain(tacc.finalize_stream(ci=ci, cs=cs)),
+                 _drain(jacc.finalize_stream(ci=ci, cs=cs)))
+
+
+def test_counts_saturate_at_2_32_minus_1():
+    tacc = TorchAcc(15, device="cpu")
+    for ku, kc in _big_count_runs():
+        tacc.runs.append((torch.from_numpy(ku.view(np.int64)),
+                          torch.from_numpy(kc.view(np.int32)), 8))
+    gk, gc = tacc.finalize(ci=1, cs=0xFFFFFFFF)
+    assert gk.tolist() == [5, 9, 12, 40, 77, 1 << 63]
+    assert gc.dtype == np.uint32
+    # 2^32 exactly, 2^32-1 exactly, 2^32 by one, 6, 5e9, 2^32+5
+    assert gc.tolist() == [0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF, 6, 0xFFFFFFFF,
+                           0xFFFFFFFF]
+
+
+def test_low_key_drop_and_bloom_feed_read_counts_unsigned():
+    """A count past 2^31 is a large count, not a negative one: the low-key
+    drop keeps it and the Bloom feed does not take it for a low key."""
+    u = torch.tensor([3, 8, 20, -1], dtype=torch.int64)
+    c = torch.from_numpy(np.array([1, 3_000_000_000, 2, 0],
+                                  np.uint32).view(np.int32))
+    u2, c2, flat = tlsm._drop_compact(u, c, 2)
+    assert u2.tolist()[:2] == [8, 20] and int(flat[0]) == 2
+    assert c2.numpy().view(np.uint32).tolist()[:2] == [3_000_000_000, 2]
+    stats = tlsm._final_stats(u, c, 1)
+    assert stats[:5].tolist() == [3, 1, 1, 0, 3]
+    b = DeviceBloomBuilder(15, 1, 0xFFFFFFFF, 7, np.array([1, 0, 0]),
+                           device="cpu")
+    b.feed_table(u, c, 4)
+    one = DeviceBloomBuilder(15, 1, 0xFFFFFFFF, 7, np.array([1, 0, 0]),
+                             device="cpu")
+    one.feed_table(u[:1], c[:1], 1)
+    assert torch.equal(b._bitmap, one._bitmap) and int(b._bitmap.sum()) > 0
