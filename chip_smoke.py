@@ -13,11 +13,14 @@ Phases, one line each (any failure exits non-zero):
      counted in integers, keys as unsigned 64-bit), with median
      kernel and plain times from CUDA events (the sort at 64M keys and at
      the realistic workload's 65,961,984, keys and payloads exact; the
-     merge at 16M + 16M, 700 + 1100, 64M + 4M and a tie-heavy 4M + 4M pair
-     whose payloads show the order of equal keys; the run LSM's whole merge
-     step, ``_merge_runs``, at 16M + 16M beside the merge kernel), each
-     beside its bound: the bytes it must move at the card's 3.35 TB/s or
-     its operations at 67 T/s, whichever takes longer;
+     merge at 16M + 16M, 700 + 1100, 64M + 4M, a tie-heavy 4M + 4M pair
+     whose payloads show the order of equal keys, and the soak's 32M + 32M
+     (four fifths of one run's keys also in the other) and 64M + 32M; the
+     run LSM's whole merge step, ``_merge_runs``, at 16M + 16M and at 32M +
+     32M beside the merge kernel; the compaction at 64M pairs and at the
+     96M pairs a 64M + 32M merge leaves), each beside its bound: the bytes
+     it must move at the card's 3.35 TB/s or its operations at 67 T/s,
+     whichever takes longer;
   4. the port's CLI build on the realistic-spectrum workload (the seeded
      generator of bench.py: 2M-base genome, 533,000 x 150 bp reads, 0.5%
      errors; k=31 ci=1 cs=1023 nh=7 nb=5), the Bloom bank built on the
@@ -70,10 +73,21 @@ Phases, one line each (any failure exits non-zero):
      KMCEX_PROCESS_ID, KMCEX_LOCAL_SHARDS), run the CLI with ``-accsharded``
      on the headline read set: rank 0's files equal the numpy oracle's,
      rank 1 writes none, both exit 0;
+ 15. soak: ``kmcex_tpu_torch.tools.soak`` at its full size (2,000,000 reads
+     of a 20M-base genome, seed 2025: 245,858,304 windows) with no tier
+     threshold set, so the raw tier (64M windows) and the spill threshold
+     (128M entries) are the defaults: a warm model-only build, the timed
+     one, one that keeps the pairs, and the partitioned numpy oracle:
+     34,151,483 distinct k-mers, keys and cs-clamped counts equal element
+     by element, at least 3 raw collapses and 2 device merges and no spill,
+     no host Bloom insert on the model-only pass, ``header``, ``km.bin``
+     and ``rest.bin`` equal between the two builds and the host encoder fed
+     the oracle's table; then phase 8's serving check on that model;
 
 then one JSON line with every kernel's launches on the main path (phases 4,
-5, 7, 9 and 12) and times, the card line, and the result line.  Imports no
-JAX.
+5, 7, 9, 12 and 15) and times, the card line, and the result line.  The read
+generator, the oracle and the query mix are the package's own
+(``kmcex_tpu_torch.tools.workload``, numpy only).  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -92,9 +106,12 @@ import time
 import numpy as np
 
 REPO = pathlib.Path(__file__).resolve().parent
-READ_LEN = 150
 K, CI, CS, NH, NB = 31, 1, 1023, 7, 5
 REALISTIC_DISTINCT = 10_883_515
+# phase 15: the JAX package's soak record (SOAK_r05.json), same generator
+# and seed: integers that a right count reproduces on any machine
+SOAK_DISTINCT = 34_151_483
+SOAK_WINDOWS = 245_858_304
 # phase-3 shapes: the default raw tier's collapse size, and two runs of the
 # run LSM at the headline workload's merge size
 SORT_N = 64 << 20
@@ -118,63 +135,6 @@ SHARD_TIERS = {"RAW_TIER_ELEMS": 1 << 19, "SPILL_THRESHOLD": 1 << 21,
 N_SHARDS = 4
 FILES = ["o.res.kmc_pre", "o.res.kmc_suf", "o.res/header", "o.res/km.bin",
          "o.res/rest.bin"]
-
-
-def make_reads(genome_len: int, n_reads: int, seed: int, err_rate: float):
-    """A copy of bench.py:make_fastq's generator, returning the ASCII reads
-    ([n_reads, 150] uint8) instead of writing them."""
-    rng = np.random.default_rng(seed)
-    genome = rng.integers(0, 4, size=genome_len).astype(np.uint8)
-    starts = rng.integers(0, genome_len - READ_LEN, size=n_reads)
-    idx = starts[:, None] + np.arange(READ_LEN)[None, :]
-    reads = genome[idx]
-    # sequencing errors + rare Ns (0.05%)
-    err = rng.random(reads.shape) < err_rate
-    reads = np.where(err, (reads + rng.integers(1, 4, size=reads.shape)) % 4, reads)
-    acgt = np.frombuffer(b"ACGTN", dtype=np.uint8)
-    ascii_reads = acgt[reads]
-    ascii_reads[rng.random(reads.shape) < 0.0005] = ord("N")
-    return ascii_reads
-
-
-def write_fastq(path: pathlib.Path, ascii_reads: np.ndarray) -> None:
-    qual = np.full(READ_LEN, ord("I"), dtype=np.uint8)
-    with open(path, "wb") as f:
-        chunk = []
-        for i in range(len(ascii_reads)):
-            chunk.append(b"@r%d\n" % i)
-            chunk.append(ascii_reads[i].tobytes())
-            chunk.append(b"\n+\n")
-            chunk.append(qual.tobytes())
-            chunk.append(b"\n")
-            if len(chunk) >= 5000:
-                f.write(b"".join(chunk))
-                chunk = []
-        f.write(b"".join(chunk))
-
-
-def oracle_counts(ascii_reads: np.ndarray, k: int):
-    """Independent numpy count: the canonical k-mer of every fully-ACGT
-    k-window of every read, counted with np.unique."""
-    lut = np.full(256, 255, dtype=np.uint8)
-    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
-    W = READ_LEN - k + 1
-    parts = []
-    for a in range(0, len(ascii_reads), 20000):
-        codes = lut[ascii_reads[a : a + 20000]]
-        bad = codes > 3
-        c = np.where(bad, 0, codes).astype(np.uint64)
-        fwd = np.zeros((len(c), W), np.uint64)
-        rc = np.zeros((len(c), W), np.uint64)
-        for t in range(k):
-            fwd |= c[:, t : t + W] << np.uint64(2 * (k - 1 - t))
-            rc |= (np.uint64(3) - c[:, t : t + W]) << np.uint64(2 * t)
-        nbad = np.concatenate([np.zeros((len(c), 1), np.int32),
-                               np.cumsum(bad, axis=1, dtype=np.int32)], axis=1)
-        ok = (nbad[:, k:] - nbad[:, :-k]) == 0
-        parts.append(np.minimum(fwd, rc)[ok])
-    kmers, counts = np.unique(np.concatenate(parts), return_counts=True)
-    return kmers, counts
 
 
 def nvidia_smi() -> str:
@@ -341,19 +301,38 @@ def phase_kernels(dev):
 
     # merge_sorted_u64: two SENTINEL-padded 16M runs (run-LSM shape), two
     # runs of < 2048 keys in total (the one-block case), a large run against
-    # a fresh one, and a tie-heavy pair: keys from 2^16 values, payload = a
-    # unique index, so keys AND payloads must equal the stable plain version
-    main_shape = "16M+16M"
-    def pair(la, lb):
-        return (lambda: (padded_run(rng, la, 0.85, dev),
-                         padded_run(rng, lb, 0.7, dev)))
+    # a fresh one, a tie-heavy pair (keys from 2^16 values, payload = a
+    # unique index, so keys AND payloads must equal the stable plain
+    # version), and the soak's shapes: two 32M runs as two collapses of one
+    # genome leave them (72% real, four fifths of b's keys also in a), and a
+    # merged 64M run (55% real) against a fresh 32M one
+    main_shape, soak_shape = "16M+16M", "32M+32M"
+    def pair(la, lb, fa=0.85, fb=0.7):
+        return (lambda: (padded_run(rng, la, fa, dev),
+                         padded_run(rng, lb, fb, dev)))
+
+    def sharing_pair(m, fill, shared):
+        a, ca = padded_run(rng, m, fill, dev)
+        real = int(m * fill)
+        kb = a[:real][torch.from_numpy(rng.random(real) < shared).to(dev)]
+        fresh = torch.from_numpy(rng.integers(
+            0, 1 << 63, real - kb.numel(), dtype=np.int64)).to(dev)
+        b = torch.full((m,), SENT, dtype=torch.int64, device=dev)
+        b[:real] = sort.sort_u64_plain(torch.cat([kb, fresh]))
+        cb = torch.zeros(m, dtype=torch.int32, device=dev)
+        cb[:real] = torch.from_numpy(
+            rng.integers(1, 1 << 20, real).astype(np.int32)).to(dev)
+        return (a, ca), (b, cb)
 
     shapes = ((main_shape, pair(MERGE_RUN, MERGE_RUN)),
               ("700+1100", pair(700, 1100)),
               ("64M+4M", pair(64 << 20, 4 << 20)),
               ("ties4M+4M", lambda: (tie_run(rng, 4 << 20, 0, dev),
-                                     tie_run(rng, 4 << 20, 4 << 20, dev))))
+                                     tie_run(rng, 4 << 20, 4 << 20, dev))),
+              (soak_shape, lambda: sharing_pair(32 << 20, 0.72, 0.8)),
+              ("64M+32M", pair(64 << 20, 32 << 20, 0.55, 0.72)))
     row, said = dict(mismatches=0, max_abs_err=0, library_ms=None), []
+    whole = {}
     for label, make in shapes:
         (a, ca), (b, cb) = make()
         (gk, gc), t = timed(lambda: sort.merge_sorted_u64(a, ca, b, cb))
@@ -362,11 +341,17 @@ def phase_kernels(dev):
         if bad:
             raise AssertionError(f"merge_sorted_u64 {label} disagrees: {bad} "
                                  f"elements differ, max abs err {err}")
+        del gk, gc, wk, wc
         n = a.numel() + b.numel()
         bnd = bound(24 * n, n)  # one comparison and 12 bytes in + out each
         said.append(f"{label}: kernel {t:.3f} ms, plain {tp:.3f} ms, bound "
                     f"{bnd['bound_ms']:.3f} ms")
         if label == main_shape:
+            row.update(ms=t, plain_ms=tp, **bnd)
+        else:
+            row.update({f"ms_{label}": t, f"plain_ms_{label}": tp,
+                        f"bound_ms_{label}": bnd["bound_ms"]})
+        if label in (main_shape, soak_shape):
             # the run LSM's whole merge step: this kernel, a few torch ops
             # (a key of two unique runs occurs at most twice), compact_pairs;
             # beside it the form it had before, with its prefix sum
@@ -378,53 +363,64 @@ def phase_kernels(dev):
                 [(g, w) for g, w in zip(got_r[:2], want_r[:2])])
             if bad or int(got_r[2]) != int(want_r[2]):
                 raise AssertionError(
-                    f"_merge_runs disagrees with its prefix-sum form: {bad} "
-                    f"elements differ, max abs err {err}")
+                    f"_merge_runs {label} disagrees with its prefix-sum "
+                    f"form: {bad} elements differ, max abs err {err}")
+            summed = int((a != SENT).sum() + (b != SENT).sum()) - int(got_r[2])
+            del got_r, want_r
             top = top_device_ops(
                 lambda: device_lsm._merge_runs(a, ca, b, cb))
-            row.update(ms=t, plain_ms=tp, merge_runs_ms=t_runs,
-                       merge_runs_before_ms=t_before,
-                       merge_runs_top_ops=top, **bnd)
-            del got_r, want_r
-        else:
-            row.update({f"ms_{label}": t, f"plain_ms_{label}": tp,
-                        f"bound_ms_{label}": bnd["bound_ms"]})
-        del a, ca, b, cb, gk, gc, wk, wc
+            whole[label] = (t, t_runs, t_before, summed, top)
+            suffix = "" if label == main_shape else f"_{label}"
+            row.update({f"merge_runs_ms{suffix}": t_runs,
+                        f"merge_runs_before_ms{suffix}": t_before,
+                        f"merge_runs_top_ops{suffix}": top})
+        del a, ca, b, cb
+        torch.cuda.empty_cache()
     print(f"[kernels] merge_sorted_u64 {'; '.join(said)}; keys "
           f"and payloads exact (0 elements differ)")
-    print(f"[kernels] _merge_runs {main_shape} whole (merge kernel + segment "
-          f"sums in torch + compact_pairs): {row['merge_runs_ms']:.3f} ms, of "
-          f"which the merge kernel {row['ms']:.3f} ms; before, with the "
-          f"prefix sum and torch.cummin: {row['merge_runs_before_ms']:.3f} ms, "
-          f"same output (0 elements differ); most device time: "
-          + ", ".join(f"{name} {ms:.3f} ms x{count}"
-                      for name, ms, count in row["merge_runs_top_ops"]))
+    for label, (t, t_runs, t_before, summed, top) in whole.items():
+        print(f"[kernels] _merge_runs {label} whole (merge kernel + segment "
+              f"sums in torch + compact_pairs; {summed} keys in both runs): "
+              f"{t_runs:.3f} ms, of which the merge kernel {t:.3f} ms; "
+              f"before, with the prefix sum and torch.cummin: "
+              f"{t_before:.3f} ms, same output (0 elements differ); most "
+              f"device time: "
+              + ", ".join(f"{name} {ms:.3f} ms x{count}"
+                          for name, ms, count in top))
     out["merge_sorted_u64"] = row
-    torch.cuda.empty_cache()
 
     # compact_pairs: 64M (key, count) pairs, ~80% holes (segment-count shape:
-    # ascending keys, duplicate slots holed)
-    n = SORT_N
-    keys = sort.sort_u64_plain(torch.from_numpy(
-        rng.integers(0, 1 << 62, n, dtype=np.int64)).to(dev))
-    holes = torch.from_numpy(rng.random(n) < 0.8).to(dev)
-    keys[holes] = SENT
-    cnt = torch.from_numpy(rng.integers(1, 1 << 20, n).astype(np.int32)).to(dev)
-    cnt[holes] = 0
-    (gk, gc), ms = timed(lambda: compact.compact_pairs(keys, cnt))
-    (wk, wc), plain_ms = timed(lambda: compact.compact_pairs_plain(keys, cnt))
-    bad, err = compare_exact([(gk, wk), (gc, wc)])
-    if bad:
-        raise AssertionError(f"compact_pairs disagrees: {bad} elements "
-                             f"differ, max abs err {err}")
-    print(f"[kernels] compact_pairs n={n} 80% holes: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms; exact (0 elements differ)")
-    # one predicate an element; 12 bytes in and 12 out
-    out["compact_pairs"] = dict(mismatches=bad, max_abs_err=err, ms=ms,
-                                plain_ms=plain_ms, library_ms=None,
-                                **bound(24 * n, n))
-    del keys, holes, cnt, gk, gc, wk, wc
-    torch.cuda.empty_cache()
+    # ascending keys, duplicate slots holed), and 96M pairs with the 60% holes
+    # that the merge of a 64M run and a 32M one leaves (pads and doubles)
+    for n, hole_share in ((SORT_N, 0.8), (96 << 20, 0.6)):
+        keys = sort.sort_u64_plain(torch.from_numpy(
+            rng.integers(0, 1 << 62, n, dtype=np.int64)).to(dev))
+        holes = torch.from_numpy(rng.random(n) < hole_share).to(dev)
+        keys[holes] = SENT
+        cnt = torch.from_numpy(
+            rng.integers(1, 1 << 20, n).astype(np.int32)).to(dev)
+        cnt[holes] = 0
+        (gk, gc), ms = timed(lambda: compact.compact_pairs(keys, cnt))
+        (wk, wc), plain_ms = timed(
+            lambda: compact.compact_pairs_plain(keys, cnt))
+        bad, err = compare_exact([(gk, wk), (gc, wc)])
+        if bad:
+            raise AssertionError(f"compact_pairs n={n} disagrees: {bad} "
+                                 f"elements differ, max abs err {err}")
+        bnd = bound(24 * n, n)  # one predicate, 12 bytes in and 12 out each
+        print(f"[kernels] compact_pairs n={n} {hole_share:.0%} holes: kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bnd['bound_ms']:.3f} ms; exact (0 elements differ)")
+        if n == SORT_N:
+            out["compact_pairs"] = dict(mismatches=bad, max_abs_err=err,
+                                        ms=ms, plain_ms=plain_ms,
+                                        library_ms=None, **bnd)
+        else:
+            out["compact_pairs"].update({f"ms_n{n}": ms,
+                                         f"plain_ms_n{n}": plain_ms,
+                                         f"bound_ms_n{n}": bnd["bound_ms"]})
+        del keys, holes, cnt, gk, gc, wk, wc
+        torch.cuda.empty_cache()
     return out
 
 
@@ -461,8 +457,9 @@ def oracle_build(od: pathlib.Path, ascii_reads):
     cs-clamped."""
     from kmcex_tpu_torch.io.kmc_db import KMC1StreamWriter
     from kmcex_tpu_torch.model.kmodel import get_model
+    from kmcex_tpu_torch.tools import workload
 
-    kmers, counts = oracle_counts(ascii_reads, K)
+    kmers, counts = workload.oracle_counts(ascii_reads, K)
     counts = np.minimum(counts, CS).astype(np.uint32)
     keep = counts >= CI
     kmers, counts = kmers[keep], counts[keep]
@@ -485,8 +482,10 @@ def run_cli(work: pathlib.Path, name: str, ascii_reads, extra_env=None):
     """Write the FASTQ, run the port's CLI on cuda, check it against the
     numpy oracle byte for byte; returns (distinct, stats, oracle kmers,
     oracle counts)."""
+    from kmcex_tpu_torch.tools import workload
+
     fq = work / f"{name}.fastq"
-    write_fastq(fq, ascii_reads)
+    workload.write_fastq(fq, ascii_reads)
     distinct, stats = cli_build(fq, work / name, extra_env)
     kmers, counts = oracle_build(work / f"{name}_oracle", ascii_reads)
     if distinct != len(kmers):
@@ -591,29 +590,23 @@ def phase_model_only(work: pathlib.Path, fq: pathlib.Path, cli_dir, st_cli,
     return launches
 
 
-def serving_queries(kmers, nq: int = 1_000_000):
-    """bench.py's query mix: half drawn from the counted k-mers, half random
-    62-bit values, shuffled."""
-    rng = np.random.default_rng(0)
-    q = np.concatenate([rng.choice(kmers, nq // 2),
-                        rng.integers(0, 1 << 62, nq // 2, dtype=np.uint64)])
-    rng.shuffle(q)
-    return q
-
-
-def phase_serving(dev, model_dir: pathlib.Path, kmers, counts):
-    """bench.py's query mix against the realistic model, host and device."""
+def phase_serving(dev, model_dir: pathlib.Path, kmers, counts,
+                  tag: str = "serving"):
+    """bench.py's query mix against the model in ``model_dir`` (built from
+    the table ``kmers``, ``counts``), host and device.  Returns the host and
+    the device end-to-end Mq/s."""
     import torch
 
     from kmcex_tpu_torch import DeviceKModel, load_model
     from kmcex_tpu_torch.core import codec
+    from kmcex_tpu_torch.tools import workload
 
     km = load_model(model_dir)
     t = time.time()
     dm = DeviceKModel(km)  # device=None: the card
     torch.cuda.synchronize()
     t_load = time.time() - t
-    q = serving_queries(kmers)
+    q = workload.serving_queries(kmers)
     nq = len(q)
 
     km.kmer_to_occ_u64(q[:1000])  # warm
@@ -631,10 +624,10 @@ def phase_serving(dev, model_dir: pathlib.Path, kmers, counts):
     n_resolved = dm.n_resolved
     bad = int((answers[0] != host).sum())
     if bad:
-        raise AssertionError(f"serving: {bad} of {nq} device answers differ "
+        raise AssertionError(f"{tag}: {bad} of {nq} device answers differ "
                              f"from the host's")
     if not all(np.array_equal(a, answers[0]) for a in answers[1:]):
-        raise AssertionError("serving: a second call gave other answers")
+        raise AssertionError(f"{tag}: a second call gave other answers")
 
     # queries resident on the card, main pass only
     qd = torch.from_numpy(q.view(np.int64)).to(dev)
@@ -653,7 +646,7 @@ def phase_serving(dev, model_dir: pathlib.Path, kmers, counts):
     want = ob.bin_to_mean_np(ob.occ_to_bin_np(counts[pos[present]]))
     exact = float((answers[0][present] == want.astype(np.int32)).mean())
     fp = float((answers[0][~present] != 0).mean())
-    print(f"[serving] {nq} queries ({int(present.sum())} present): device "
+    print(f"[{tag}] {nq} queries ({int(present.sum())} present): device "
           f"answers equal the host's on all, twice more the same; resolve "
           f"pass took {n_resolved} ambiguous queries; host "
           f"{nq / best_h / 1e6:.3f} Mq/s, device end to end "
@@ -664,10 +657,12 @@ def phase_serving(dev, model_dir: pathlib.Path, kmers, counts):
           f"non-zero: {fp:.6f}; model on the device {dm.device_bytes()} "
           f"bytes (host model {km.total_model_bytes()} bytes), upload + "
           f"cuckoo build {t_load:.3f} s")
-    print(f"[serving] main pass under torch.profiler: {launches} launches, "
+    print(f"[{tag}] main pass under torch.profiler: {launches} launches, "
           f"{busy_ms:.3f} ms of kernels in {main_ms:.3f} ms; most device "
           f"time: " + ", ".join(f"{name} {ms:.3f} ms x{count}"
                                 for name, ms, count in top))
+    return {"host_mqs": nq / best_h / 1e6, "device_mqs": nq / best_d / 1e6,
+            "resident_main_mqs": nq / main_ms / 1e3}
 
 
 def phase_spill(work: pathlib.Path, fq: pathlib.Path, cli_dir, peak4_mb):
@@ -792,6 +787,7 @@ def phase_database(dev, work: pathlib.Path, cli_dir, kmers, counts, reads_1k):
     from kmcex_tpu_torch.io import kmc_db
     from kmcex_tpu_torch.model.kmodel import get_model
     from kmcex_tpu_torch.query import annotate
+    from kmcex_tpu_torch.tools import workload
 
     db = str(cli_dir / "o.res")
     secs = {}
@@ -806,7 +802,7 @@ def phase_database(dev, work: pathlib.Path, cli_dir, kmers, counts, reads_1k):
     lk, lc = clock("list_all", rd.list_all)
     if not (np.array_equal(lk, kmers) and np.array_equal(lc, counts)):
         raise AssertionError("KMCReader.list_all differs from the oracle")
-    q = codec.canonical_np(serving_queries(kmers), K)
+    q = codec.canonical_np(workload.serving_queries(kmers), K)
     pos = np.minimum(np.searchsorted(kmers, q), len(kmers) - 1)
     want = np.where(kmers[pos] == q, counts[pos], 0).astype(np.uint32)
     got = clock("check_kmers", lambda: kmc_db.KMCReader(db).check_kmers(q))
@@ -1008,9 +1004,10 @@ def phase_sharded_serving(dev, model_dir: pathlib.Path, kmers):
     """make_server over four shards of the card on phase 8's queries."""
     from kmcex_tpu_torch import DeviceKModel, load_model
     from kmcex_tpu_torch.parallel.serve import make_server
+    from kmcex_tpu_torch.tools import workload
 
     km = load_model(model_dir)
-    q = serving_queries(kmers)
+    q = workload.serving_queries(kmers)
     host = km.kmer_to_occ_u64(q)
     one = DeviceKModel(km).kmer_to_occ(q)
     srv = make_server(km, devices=[dev] * N_SHARDS)
@@ -1092,6 +1089,95 @@ def phase_two_ranks(work: pathlib.Path, fq: pathlib.Path, oracle_dir):
                        else "absent" for s_ in st))
 
 
+def phase_soak(dev, work: pathlib.Path, serving8: dict):
+    """tools.soak at its full size and the default tier thresholds, in this
+    process: three builds, the partitioned numpy oracle, then the model
+    against the host encoder fed the oracle's table, and serving on it.
+    Returns the timed pass's launch counts."""
+    import torch
+
+    from kmcex_tpu_torch.count.device_lsm import DeviceCountAccumulator as Acc
+    from kmcex_tpu_torch.model.kmodel import get_model
+    from kmcex_tpu_torch.tools import soak
+
+    forced = [k_ for k_ in (*SPILL_ENV, "KMCEX_DEVICE_BLOOM",
+                            "KMCEX_TRACE_DIR") if k_ in os.environ]
+    if forced:
+        raise AssertionError(f"soak: set in the environment: {forced}")
+    torch.cuda.empty_cache()
+    wd = work / "soak"
+    wd.mkdir()
+    t_phase = time.time()
+    res = soak.run(soak.N_READS, wd, dev)
+    art = res.artifact
+    soak.DEFAULT_OUT.parent.mkdir(parents=True, exist_ok=True)
+    soak.DEFAULT_OUT.write_text(json.dumps(art, indent=1) + "\n")
+    if art["thresholds"] != {"raw_tier_elems": Acc.RAW_TIER_ELEMS,
+                             "spill_threshold": Acc.SPILL_THRESHOLD,
+                             "disk_spill_bytes": Acc.DISK_SPILL_BYTES}:
+        raise AssertionError(f"soak: thresholds {art['thresholds']} are not "
+                             f"the defaults")
+    if not res.ok:
+        raise AssertionError(f"soak: against the oracle: {art['oracle']}")
+    ev, launches, ph = art["tiers"], art["kernel_launches"], art["phases"]
+    if (art["distinct_kmers"] != SOAK_DISTINCT
+            or art["windows"] != SOAK_WINDOWS
+            or len(res.want_k) != SOAK_DISTINCT):
+        raise AssertionError(
+            f"soak: distinct {art['distinct_kmers']} (oracle "
+            f"{len(res.want_k)}), windows {art['windows']}; expected "
+            f"{SOAK_DISTINCT} and {SOAK_WINDOWS}")
+    if (ev["raw_collapses"] < 3 or ev["device_merges"] < 2
+            or ev["host_spills"] or ev["disk_spills"]):
+        raise AssertionError(f"soak: tier events {ev}")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"soak skipped a kernel: {launches}")
+    if "encode.bloom_insert" in ph or "finalize.drop_low" not in ph:
+        raise AssertionError(f"soak: model-only phases {sorted(ph)}")
+    # one model by three routes: model-only (device Bloom build, low keys
+    # dropped), pairs kept, and the host encoder fed the oracle's table
+    res.km.save(wd / "model_only" / "o.res")
+    res.km_verify.save(wd / "verify" / "o.res")
+    t = time.time()
+    km = get_model(CI, CS, NH, NB)
+    km.init_from_pairs(res.want_k, res.want_c, K)
+    km.save(wd / "oracle" / "o.res")
+    t_host_encode = time.time() - t
+    for name in ("verify", "oracle"):
+        same_files(f"soak/{name}", wd / name, wd / "model_only", FILES[2:])
+    rates = phase_serving(dev, wd / "model_only" / "o.res", res.want_k,
+                          res.want_c, tag="soak-serving")
+    sp = art["spill"]
+    print(f"[soak] reads {art['workload']['n_reads']}, windows "
+          f"{art['windows']}, distinct {art['distinct_kmers']}, thresholds "
+          f"{art['thresholds']} (the defaults), tiers {ev}, launches "
+          f"{launches}, count {art['count_seconds']:.3f} s, encode "
+          f"{art['encode_seconds']:.3f} s, wall {art['wall_seconds']:.3f} s, "
+          f"{art['mreads_per_s']:.4f} Mreads/s (warm pass "
+          f"{art['warm_pass_seconds']:.3f} s), peak device memory "
+          f"{art['peak_device_mb']:.1f} MB, peak RSS {art['peak_rss_mb']} MB "
+          f"({art['peak_rss_at_start_mb']} MB when the phase began, "
+          f"{art['peak_rss_after_generate_mb']} MB before the first pass), "
+          f"table bytes to the host {art['table_bytes_to_host']}, spill "
+          f"copies {sp['copy_bytes']} bytes; keys and counts equal the "
+          f"oracle's; host Bloom insert absent; header, km.bin, rest.bin "
+          f"equal between the model-only pass, the pass that keeps the "
+          f"pairs and the host encoder fed the oracle's table "
+          f"({t_host_encode:.3f} s); generator {art['generate_seconds']:.3f} "
+          f"s, oracle {art['oracle_seconds']:.3f} s, phase "
+          f"{time.time() - t_phase:.1f} s")
+    print("[soak] timed pass, phases: " + ", ".join(
+        f"{k_} {v:.3f}" for k_, v in sorted(ph.items(), key=lambda kv: -kv[1])))
+    print(f"[soak] serving on the {art['distinct_kmers']}-k-mer model: host "
+          f"{rates['host_mqs']:.3f} Mq/s, device end to end "
+          f"{rates['device_mqs']:.3f} Mq/s, resident main pass "
+          f"{rates['resident_main_mqs']:.3f} Mq/s; on phase 8's "
+          f"{REALISTIC_DISTINCT}-k-mer model: {serving8['host_mqs']:.3f}, "
+          f"{serving8['device_mqs']:.3f}, "
+          f"{serving8['resident_main_mqs']:.3f}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1105,6 +1191,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from kmcex_tpu_torch import native
     from kmcex_tpu_torch.native import build, kernels
+    from kmcex_tpu_torch.tools import workload
 
     t = time.time()
     build.build_kernels(force=True)
@@ -1123,7 +1210,7 @@ def main() -> int:
     build_dir.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="smoke_", dir=build_dir) as tmp:
         work = pathlib.Path(tmp)
-        reads = make_reads(2_000_000, 533_000, 4242, 0.005)
+        reads = workload.make_reads(2_000_000, 533_000, 4242, 0.005)
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()  # the main path's run starts here
         distinct, st, kmers, counts = run_cli(work, "realistic", reads)
@@ -1175,7 +1262,8 @@ def main() -> int:
         phase_bloom_alone(dev, kmers, counts)
         l6 = phase_model_only(work, fq, work / "realistic", st_cli,
                               l4["compact_pairs"])
-        phase_serving(dev, work / "realistic" / "o.res", kmers, counts)
+        serving8 = phase_serving(dev, work / "realistic" / "o.res", kmers,
+                                 counts)
         l9 = phase_spill(work, fq, work / "realistic", peak_mb)
         phase_resume(work, fq, work / "realistic")
         phase_database(dev, work, work / "realistic", kmers, counts, reads_1k)
@@ -1184,7 +1272,7 @@ def main() -> int:
         del kmers, counts
         torch.cuda.empty_cache()
 
-        reads = make_reads(2_000_000, 200_000, 12345, 0.002)
+        reads = workload.make_reads(2_000_000, 200_000, 12345, 0.002)
         kernels.reset_launches()  # the run-LSM path's run starts here
         distinct, st, _, _ = run_cli(work, "headline", reads,
                                      {"KMCEX_RAW_TIER_ELEMS": "8388608"})
@@ -1199,6 +1287,8 @@ def main() -> int:
               f"numpy oracle")
         phase_two_ranks(work, work / "headline.fastq",
                         work / "headline_oracle")
+        del reads
+        l15 = phase_soak(dev, work, serving8)
     src = {"sort_u64": ("kmcex_tpu_torch/csrc/sort.cu",
                         "kmcex_tpu/count/sort_pallas.py:203",
                         ["kmcex_tpu/count/sort_pallas.py:266"]),
@@ -1212,13 +1302,15 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": path,
                      "replaces": repl, "also_replaces": also,
                      "launches": (l4[name] + l5[name] + l6[name] + l9[name]
-                                  + l12["mesh"][name] + l12["forced"][name]),
+                                  + l12["mesh"][name] + l12["forced"][name]
+                                  + l15[name]),
                      "launches_realistic": l4[name],
                      "launches_run_lsm": l5[name],
                      "launches_model_only": l6[name],
                      "launches_spill": l9[name],
                      "launches_sharded": l12["mesh"][name],
                      "launches_sharded_forced": l12["forced"][name],
+                     "launches_soak": l15[name],
                      **bench[name]})
     print(json.dumps({"kernels": rows}))
     print(card)

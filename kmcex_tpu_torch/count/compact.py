@@ -15,6 +15,8 @@ import torch
 from kmcex_tpu_torch.native import kernels
 
 SENTINEL = -1
+# csrc/compact.cu launches one block a tile: the grid's first dimension
+MAX_TILES = (1 << 31) - 1
 
 
 def compact_pairs_plain(keys: torch.Tensor, counts: torch.Tensor):
@@ -25,6 +27,16 @@ def compact_pairs_plain(keys: torch.Tensor, counts: torch.Tensor):
     out_k[:m] = keys[live]
     out_c[:m] = counts[live]
     return out_k, out_c
+
+
+def _check_tiles(n: int, tile: int) -> int:
+    """The number of tiles of ``n`` pairs; raises where the grid could not
+    hold them (the C entry points cast the count to unsigned)."""
+    tiles = -(-n // tile)
+    if tiles > MAX_TILES:
+        raise ValueError(f"compact_pairs takes at most {MAX_TILES * tile} "
+                         f"pairs on the card, got {n}")
+    return tiles
 
 
 def compact_pairs(keys: torch.Tensor, counts: torch.Tensor):
@@ -43,7 +55,7 @@ def compact_pairs(keys: torch.Tensor, counts: torch.Tensor):
         return out_k, out_c
     lib = kernels.lib()
     tile = lib.kx_compact_tile()
-    tiles = -(-n // tile)
+    tiles = _check_tiles(n, tile)
     tile_counts = torch.empty(tiles, dtype=torch.int32, device=keys.device)
     stream = kernels.stream_ptr(keys)
     kernels.check(lib.kx_compact_count(keys.data_ptr(), n,

@@ -8,6 +8,7 @@ a ``torch.profiler`` trace (Chrome trace format) when KMCEX_TRACE_DIR is set.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 
@@ -58,6 +59,32 @@ def device_trace(label: str = "kmcex"):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(trace_dir, f"{label}.json"))
+
+
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_device_busy(path: str | os.PathLike) -> tuple[float, float]:
+    """(busy seconds, span seconds) of a Chrome trace that ``device_trace``
+    wrote: busy is the union of the intervals in which a kernel, a device
+    copy or a memset ran (overlapping streams count once), span runs from
+    the first event of the trace to the end of the last, host events
+    included.  The device's idle share of the traced call is
+    ``1 - busy / span``."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "ts" in e]
+    if not events:
+        return 0.0, 0.0
+    span = (max(e["ts"] + e.get("dur", 0) for e in events)
+            - min(e["ts"] for e in events))
+    busy, end = 0.0, float("-inf")
+    for ts, dur in sorted((e["ts"], e.get("dur", 0)) for e in events
+                          if e.get("cat") in _DEVICE_CATS):
+        if ts + dur > end:
+            busy += ts + dur - max(ts, end)
+            end = ts + dur
+    return busy / 1e6, span / 1e6
 
 
 def verbose() -> bool:

@@ -73,3 +73,18 @@ def test_compact_hole_runs_equals_pallas(first_half):
     keys[half] = S
     counts[half] = 0
     _check(keys, counts)
+
+
+@pytest.mark.parametrize("n,ok", [(1, True), (1024 * ((1 << 31) - 1), True),
+                                  (1024 * ((1 << 31) - 1) + 1, False),
+                                  (1 << 42, False)])
+def test_compact_pairs_size_limit(n, ok):
+    """One block a tile of 1024 pairs, and a grid's first dimension holds
+    2^31 - 1 blocks: the wrapper refuses more before it launches."""
+    from kmcex_tpu_torch.count import compact
+
+    if ok:
+        assert compact._check_tiles(n, 1024) == -(-n // 1024)
+    else:
+        with pytest.raises(ValueError, match="at most"):
+            compact._check_tiles(n, 1024)
