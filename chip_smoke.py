@@ -17,10 +17,12 @@ Phases, one line each (any failure exits non-zero):
      whose payloads show the order of equal keys, and the soak's 32M + 32M
      (four fifths of one run's keys also in the other) and 64M + 32M; the
      run LSM's whole merge step, ``_merge_runs``, at 16M + 16M and at 32M +
-     32M beside the merge kernel; the compaction at 64M pairs and at the
-     96M pairs a 64M + 32M merge leaves), each beside its bound: the bytes
-     it must move at the card's 3.35 TB/s or its operations at 67 T/s,
-     whichever takes longer;
+     32M beside the merge kernel; the compaction at 64M pairs with 80%, 0%
+     and 100% holes and at the 96M pairs a 64M + 32M merge leaves), each
+     beside its bound: the bytes it must move at the card's 3.35 TB/s or
+     its operations at 67 T/s, whichever takes longer; and each kernel's
+     main shape (every compaction shape) beside a plain device copy of the
+     same bytes, the rate such a kernel can reach in practice;
   4. the port's CLI build on the realistic-spectrum workload (the seeded
      generator of bench.py: 2M-base genome, 533,000 x 150 bp reads, 0.5%
      errors; k=31 ci=1 cs=1023 nh=7 nb=5), the Bloom bank built on the
@@ -182,6 +184,21 @@ def top_device_ops(fn, k: int = 3, totals: bool = False):
     return top
 
 
+def copy_ms(*srcs) -> float:
+    """Median ms of a plain device copy of ``srcs`` into tensors of their
+    sizes: each byte read once and written once, the rate a kernel that
+    moves the same bytes can reach in practice."""
+    import torch
+
+    dsts = [torch.empty_like(x) for x in srcs]
+
+    def run():
+        for d, x in zip(dsts, srcs):
+            d.copy_(x)
+
+    return timed(run)[1]
+
+
 def bound(n_bytes: int, n_ops: int) -> dict:
     """The least time the card could take: every input byte read once and
     every output byte written once at the memory rate, or the operations at
@@ -279,15 +296,17 @@ def phase_kernels(dev):
             raise AssertionError(f"sort_u64 n={n} disagrees with its plain "
                                  f"version: {bad} elements differ, max abs "
                                  f"err {err}")
+        cp_ms = copy_ms(x)  # the keys in and out, as the bound counts
         print(f"[kernels] sort_u64 n={n}: kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms; with int32 payload: kernel {ms_p:.3f} ms, "
+              f"{plain_ms:.3f} ms, device copy of the keys {cp_ms:.3f} ms; "
+              f"with int32 payload: kernel {ms_p:.3f} ms, "
               f"plain {plain_ms_p:.3f} ms; keys and payloads exact (0 "
               f"elements differ)")
         # n log2 n key comparisons; keys in and out, 8 bytes each way (12
         # with the payload)
         ops = int(n * np.log2(n))
         rows[n] = dict(mismatches=bad, max_abs_err=err, ms=ms,
-                       plain_ms=plain_ms, library_ms=lib_ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, copy_ms=cp_ms,
                        payload_ms=ms_p, payload_plain_ms=plain_ms_p,
                        payload_bound_ms=bound(24 * n, ops)["bound_ms"],
                        **bound(16 * n, ops))
@@ -347,7 +366,9 @@ def phase_kernels(dev):
         said.append(f"{label}: kernel {t:.3f} ms, plain {tp:.3f} ms, bound "
                     f"{bnd['bound_ms']:.3f} ms")
         if label == main_shape:
-            row.update(ms=t, plain_ms=tp, **bnd)
+            cp_ms = copy_ms(a, ca, b, cb)  # both runs' keys and payloads
+            said[-1] += f", device copy of the same bytes {cp_ms:.3f} ms"
+            row.update(ms=t, plain_ms=tp, copy_ms=cp_ms, **bnd)
         else:
             row.update({f"ms_{label}": t, f"plain_ms_{label}": tp,
                         f"bound_ms_{label}": bnd["bound_ms"]})
@@ -390,9 +411,12 @@ def phase_kernels(dev):
     out["merge_sorted_u64"] = row
 
     # compact_pairs: 64M (key, count) pairs, ~80% holes (segment-count shape:
-    # ascending keys, duplicate slots holed), and 96M pairs with the 60% holes
-    # that the merge of a 64M run and a 32M one leaves (pads and doubles)
-    for n, hole_share in ((SORT_N, 0.8), (96 << 20, 0.6)):
+    # ascending keys, duplicate slots holed), 96M pairs with the 60% holes
+    # that the merge of a 64M run and a 32M one leaves (pads and doubles),
+    # and 64M with no hole and with nothing but holes (the look-back over
+    # full and empty tiles)
+    for n, hole_share in ((SORT_N, 0.8), (96 << 20, 0.6), (SORT_N, 0.0),
+                          (SORT_N, 1.0)):
         keys = sort.sort_u64_plain(torch.from_numpy(
             rng.integers(0, 1 << 62, n, dtype=np.int64)).to(dev))
         holes = torch.from_numpy(rng.random(n) < hole_share).to(dev)
@@ -403,22 +427,28 @@ def phase_kernels(dev):
         (gk, gc), ms = timed(lambda: compact.compact_pairs(keys, cnt))
         (wk, wc), plain_ms = timed(
             lambda: compact.compact_pairs_plain(keys, cnt))
+        cp_ms = copy_ms(keys, cnt)  # 12 bytes in and 12 out a pair
         bad, err = compare_exact([(gk, wk), (gc, wc)])
         if bad:
-            raise AssertionError(f"compact_pairs n={n} disagrees: {bad} "
-                                 f"elements differ, max abs err {err}")
+            raise AssertionError(f"compact_pairs n={n} {hole_share:.0%} holes "
+                                 f"disagrees: {bad} elements differ, max abs "
+                                 f"err {err}")
         bnd = bound(24 * n, n)  # one predicate, 12 bytes in and 12 out each
         print(f"[kernels] compact_pairs n={n} {hole_share:.0%} holes: kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{bnd['bound_ms']:.3f} ms; exact (0 elements differ)")
-        if n == SORT_N:
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, device copy of the same "
+              f"bytes {cp_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms "
+              f"({bnd['bound_ms'] / ms:.1%} of it); exact (0 elements differ)")
+        if (n, hole_share) == (SORT_N, 0.8):
             out["compact_pairs"] = dict(mismatches=bad, max_abs_err=err,
                                         ms=ms, plain_ms=plain_ms,
-                                        library_ms=None, **bnd)
+                                        copy_ms=cp_ms, library_ms=None, **bnd)
         else:
-            out["compact_pairs"].update({f"ms_n{n}": ms,
-                                         f"plain_ms_n{n}": plain_ms,
-                                         f"bound_ms_n{n}": bnd["bound_ms"]})
+            sfx = (f"_n{n}" if n != SORT_N
+                   else f"_holes{round(hole_share * 100)}")
+            out["compact_pairs"].update({f"ms{sfx}": ms,
+                                         f"plain_ms{sfx}": plain_ms,
+                                         f"copy_ms{sfx}": cp_ms,
+                                         f"bound_ms{sfx}": bnd["bound_ms"]})
         del keys, holes, cnt, gk, gc, wk, wc
         torch.cuda.empty_cache()
     return out

@@ -5,7 +5,8 @@ The counterpart of the JAX package's ``count/compact_pallas.py`` (K4,
 moves every pair whose key is not SENTINEL (``-1`` as int64) to the front
 in input order and fills the tail with (SENTINEL, 0); the output is as long
 as the input.  A CPU tensor goes to the plain version (boolean-mask select
-+ pad); a CUDA tensor goes to ``csrc/compact.cu``, or the wrapper raises.
++ pad); a CUDA tensor goes to ``csrc/compact.cu`` (one pass with decoupled
+look-back, then the tail fill), or the wrapper raises.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 from kmcex_tpu_torch.native import kernels
 
 SENTINEL = -1
-# csrc/compact.cu launches one block a tile: the grid's first dimension
+# tiles that kx_compact_pairs takes (it refuses more)
 MAX_TILES = (1 << 31) - 1
 
 
@@ -30,8 +31,8 @@ def compact_pairs_plain(keys: torch.Tensor, counts: torch.Tensor):
 
 
 def _check_tiles(n: int, tile: int) -> int:
-    """The number of tiles of ``n`` pairs; raises where the grid could not
-    hold them (the C entry points cast the count to unsigned)."""
+    """The number of tiles of ``n`` pairs; raises, before any launch, where
+    the C entry point would refuse them."""
     tiles = -(-n // tile)
     if tiles > MAX_TILES:
         raise ValueError(f"compact_pairs takes at most {MAX_TILES * tile} "
@@ -54,17 +55,13 @@ def compact_pairs(keys: torch.Tensor, counts: torch.Tensor):
     if n == 0:
         return out_k, out_c
     lib = kernels.lib()
-    tile = lib.kx_compact_tile()
-    tiles = _check_tiles(n, tile)
-    tile_counts = torch.empty(tiles, dtype=torch.int32, device=keys.device)
-    stream = kernels.stream_ptr(keys)
-    kernels.check(lib.kx_compact_count(keys.data_ptr(), n,
-                                       tile_counts.data_ptr(), stream),
-                  "kx_compact_count")
-    incl = torch.cumsum(tile_counts, 0, dtype=torch.int64)
-    kernels.check(lib.kx_compact_scatter(keys.data_ptr(), counts.data_ptr(),
-                                         n, incl.data_ptr(), out_k.data_ptr(),
-                                         out_c.data_ptr(), stream),
-                  "kx_compact_scatter")
+    _check_tiles(n, lib.kx_compact_tile())
+    scratch = torch.zeros(lib.kx_compact_scratch_words(n), dtype=torch.int64,
+                          device=keys.device)
+    kernels.check(lib.kx_compact_pairs(keys.data_ptr(), counts.data_ptr(), n,
+                                       out_k.data_ptr(), out_c.data_ptr(),
+                                       scratch.data_ptr(),
+                                       kernels.stream_ptr(keys)),
+                  "kx_compact_pairs")
     kernels.LAUNCHES["compact_pairs"] += 1
     return out_k, out_c

@@ -1,5 +1,5 @@
-"""ctypes bindings for the host runtime (the JAX package's
-``native/src/kmcex_native.cpp``, built by ``native.build``).
+"""ctypes bindings for the host runtime (``native/src/kmcex_native.cpp``,
+the port's copy of the JAX package's source, built by ``native.build``).
 
 The native library owns the order-dependent sequential encode (coupled
 bit-array insertion with the reference's rotating bucket schedule), the

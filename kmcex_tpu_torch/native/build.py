@@ -1,9 +1,10 @@
 """Build the port's two shared libraries at first use, into ``_build/``.
 
 * ``libkmcex_native.so`` — the host runtime (sequential coupled-array
-  encoder, Bloom insert, FASTQ segmenter), compiled with g++ from the JAX
-  package's C++ source, read by path: one source of truth for the
-  byte-exact encoder.
+  encoder, Bloom insert, FASTQ segmenter), compiled with g++ from the
+  port's own copy of the JAX package's C++ source,
+  ``native/src/kmcex_native.cpp`` (the same code, so the same encoder
+  bytes), so the port builds without the JAX package's directory.
 * ``libkmcex_kernels.so`` — the hand-written CUDA kernels of ``csrc/``,
   compiled with nvcc for sm_90a behind a plain C interface and loaded with
   ctypes (no PyTorch headers, so a build takes seconds, not minutes).
@@ -20,7 +21,7 @@ import shutil
 import subprocess
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-NATIVE_SRC = _PKG.parent / "kmcex_tpu" / "native" / "src" / "kmcex_native.cpp"
+NATIVE_SRC = _PKG / "native" / "src" / "kmcex_native.cpp"
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 

@@ -51,12 +51,12 @@ def _declare(L: ctypes.CDLL) -> None:
     L.kx_merge_u64.argtypes = [p, p, i64, p, p, i64, p, p, p]
     L.kx_merge_tile.restype = i32
     L.kx_merge_tile.argtypes = []
-    L.kx_compact_count.restype = i32
-    L.kx_compact_count.argtypes = [p, i64, p, p]
-    L.kx_compact_scatter.restype = i32
-    L.kx_compact_scatter.argtypes = [p, p, i64, p, p, p, p]
+    L.kx_compact_pairs.restype = i32
+    L.kx_compact_pairs.argtypes = [p, p, i64, p, p, p, p]
     L.kx_compact_tile.restype = i32
     L.kx_compact_tile.argtypes = []
+    L.kx_compact_scratch_words.restype = i64
+    L.kx_compact_scratch_words.argtypes = [i64]
 
 
 def stream_ptr(t: torch.Tensor) -> int:

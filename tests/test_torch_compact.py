@@ -13,6 +13,8 @@ from kmcex_tpu.count import sort_pallas as sp
 from kmcex_tpu_torch.count import compact
 
 S = np.uint64(0xFFFFFFFFFFFFFFFF)
+# pairs a tile of csrc/compact.cu (tests/test_torch_cuda.py checks it there)
+COMPACT_TILE = 8192
 
 
 @pytest.fixture(autouse=True)
@@ -75,16 +77,45 @@ def test_compact_hole_runs_equals_pallas(first_half):
     _check(keys, counts)
 
 
-@pytest.mark.parametrize("n,ok", [(1, True), (1024 * ((1 << 31) - 1), True),
-                                  (1024 * ((1 << 31) - 1) + 1, False),
-                                  (1 << 42, False)])
+@pytest.mark.parametrize("n,ok", [(1, True), (COMPACT_TILE * ((1 << 31) - 1), True),
+                                  (COMPACT_TILE * ((1 << 31) - 1) + 1, False),
+                                  (1 << 45, False)])
 def test_compact_pairs_size_limit(n, ok):
-    """One block a tile of 1024 pairs, and a grid's first dimension holds
-    2^31 - 1 blocks: the wrapper refuses more before it launches."""
+    """Tiles of 8192 pairs, and the C entry point takes at most 2^31 - 1 of
+    them: the wrapper refuses more before it launches."""
     from kmcex_tpu_torch.count import compact
 
     if ok:
-        assert compact._check_tiles(n, 1024) == -(-n // 1024)
+        assert compact._check_tiles(n, COMPACT_TILE) == -(-n // COMPACT_TILE)
     else:
         with pytest.raises(ValueError, match="at most"):
-            compact._check_tiles(n, 1024)
+            compact._check_tiles(n, COMPACT_TILE)
+
+
+def _tile_edge(shape: str):
+    """Sorted distinct keys with holes where the card kernel's tiling turns:
+    a ragged tile either side of one whole tile, whole tiles of holes
+    between live ones, one survivor in the very last slot."""
+    t = COMPACT_TILE
+    n = {"tile-1": t - 1, "tile": t, "tile+1": t + 1,
+         "hole_tiles_between": 5 * t + 3, "last_only": 2 * t + 1}[shape]
+    rng = np.random.default_rng(n)
+    keys = np.sort(rng.choice(1 << 62, size=n, replace=False)).astype(np.uint64)
+    if shape == "hole_tiles_between":
+        live = np.ones(n, bool)
+        live[t : 4 * t] = False
+        live[rng.random(n) < 0.3] = False
+    elif shape == "last_only":
+        live = np.zeros(n, bool)
+        live[-1] = True
+    else:
+        live = rng.random(n) >= 0.5
+    keys[~live] = S
+    counts = np.where(live, rng.integers(1, 1 << 31, n), 0).astype(np.uint32)
+    return keys, counts
+
+
+@pytest.mark.parametrize("shape", ["tile-1", "tile", "tile+1",
+                                   "hole_tiles_between", "last_only"])
+def test_compact_tile_edges_equals_pallas(shape):
+    _check(*_tile_edge(shape))

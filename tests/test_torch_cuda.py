@@ -232,15 +232,144 @@ def test_merge_rejects_negative_length(dev):
                             None) == 0
 
 
-@pytest.mark.parametrize("n,frac", [(1, 0.0), (1000, 0.5), (1024, 1.0),
-                                    (5000, 0.8), ((1 << 17) + 9, 0.3)])
+# pairs per compact_pass tile: THREADS * ITEMS = TILE in csrc/compact.cu
+COMPACT_TILE = 256 * 32
+
+
+def _check_compact_exact(dev, keys: np.ndarray, counts: np.ndarray,
+                         calls: int = 1):
+    """compact_pairs on the card equals the plain version exactly, call
+    after call on the same inputs (fresh scratch every call)."""
+    tk, tc = torch.from_numpy(keys).to(dev), torch.from_numpy(counts).to(dev)
+    wk, wc = compact.compact_pairs_plain(tk.cpu(), tc.cpu())
+    for _ in range(calls):
+        gk, gc = compact.compact_pairs(tk, tc)
+        torch.cuda.synchronize()
+        assert torch.equal(gk.cpu(), wk) and torch.equal(gc.cpu(), wc)
+
+
+@pytest.mark.parametrize("n,frac", [
+    (1, 0.0), (1000, 0.5), (1024, 1.0), (5000, 0.8), ((1 << 17) + 9, 0.3),
+    (COMPACT_TILE - 1, 0.5), (COMPACT_TILE, 0.5), (COMPACT_TILE + 1, 0.5),
+    (3 * COMPACT_TILE + 3, 0.4), (COMPACT_TILE + 2, 0.0),
+    (40 * COMPACT_TILE + 5, 0.0), (40 * COMPACT_TILE + 7, 1.0),
+    ((1 << 20) + 9, 0.6)])
 def test_compact_matches_plain(dev, n, frac):
     rng = np.random.default_rng(n)
     keys = rng.integers(0, 1 << 62, n, dtype=np.int64)
     counts = rng.integers(1, 1 << 30, n).astype(np.int32)
     holes = rng.random(n) < frac
     keys[holes] = S
+    _check_compact_exact(dev, keys, counts)
+
+
+def _compact_pattern(name: str):
+    """Inputs whose survivors sit where the look-back and the tail fill
+    turn: whole tiles of holes between full ones, one survivor at the end,
+    alternating live and empty tiles over more than a look-back window."""
+    t = COMPACT_TILE
+    if name == "hole_tiles_between_full":
+        n = 70 * t + 13
+        live = np.ones(n, bool)
+        live[2 * t:45 * t] = False  # 43 tiles of zero aggregate
+    elif name == "last_element_only":
+        n = 9 * t + 1
+        live = np.zeros(n, bool)
+        live[-1] = True
+    elif name == "last_of_full_tile_only":
+        n = 9 * t
+        live = np.zeros(n, bool)
+        live[-1] = True
+    elif name == "alternating_tiles":
+        n = 100 * t + 77
+        live = (np.arange(n) // t) % 2 == 1
+    else:  # "first_element_only"
+        n = 5 * t + 3
+        live = np.zeros(n, bool)
+        live[0] = True
+    rng = np.random.default_rng(n)
+    keys = np.where(live, rng.integers(0, 1 << 62, n, dtype=np.int64), S)
+    counts = np.where(live, rng.integers(1, 1 << 30, n), 0).astype(np.int32)
+    return keys, counts
+
+
+@pytest.mark.parametrize("name", ["hole_tiles_between_full",
+                                  "last_element_only",
+                                  "last_of_full_tile_only",
+                                  "alternating_tiles", "first_element_only"])
+def test_compact_patterns(dev, name):
+    _check_compact_exact(dev, *_compact_pattern(name))
+
+
+def test_compact_twice_and_on_a_side_stream(dev):
+    """Two calls in a row on the same inputs (a stale tile counter or stale
+    status words would show), then one on a non-default stream."""
+    rng = np.random.default_rng(5)
+    n = 300 * COMPACT_TILE + 11
+    keys = rng.integers(0, 1 << 62, n, dtype=np.int64)
+    keys[rng.random(n) < 0.7] = S
+    counts = rng.integers(1, 1 << 30, n).astype(np.int32)
+    _check_compact_exact(dev, keys, counts, calls=2)
     tk, tc = torch.from_numpy(keys).to(dev), torch.from_numpy(counts).to(dev)
+    wk, wc = compact.compact_pairs_plain(tk.cpu(), tc.cpu())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gk, gc = compact.compact_pairs(tk, tc)
+    side.synchronize()
+    assert torch.equal(gk.cpu(), wk) and torch.equal(gc.cpu(), wc)
+
+
+@pytest.mark.parametrize("tiles", [1, 63, 64, 127, 300])
+def test_compact_writes_no_word_past_its_buffers(dev, tiles):
+    """The scratch the kernel asks for (kx_compact_scratch_words) is all it
+    touches, and the outputs only their own n slots: guard words on both
+    sides of each stay as they were."""
+    lib = kernels.lib()
+    n = tiles * COMPACT_TILE - 5
+    rng = np.random.default_rng(tiles)
+    keys = rng.integers(0, 1 << 62, n, dtype=np.int64)
+    keys[rng.random(n) < 0.6] = S
+    counts = rng.integers(1, 1 << 30, n).astype(np.int32)
+    tk, tc = torch.from_numpy(keys).to(dev), torch.from_numpy(counts).to(dev)
+    g, guard = 64, 0x5A5A5A5A
+    words = lib.kx_compact_scratch_words(n)
+    bufs = {"scratch": torch.full((words + 2 * g,), guard, dtype=torch.int64,
+                                  device=dev),
+            "keys": torch.full((n + 2 * g,), guard, dtype=torch.int64,
+                               device=dev),
+            "counts": torch.full((n + 2 * g,), guard, dtype=torch.int32,
+                                 device=dev)}
+    scratch = bufs["scratch"][g:g + words]
+    scratch.zero_()
+    ok, oc = bufs["keys"][g:g + n], bufs["counts"][g:g + n]
+    assert lib.kx_compact_pairs(tk.data_ptr(), tc.data_ptr(), n,
+                                ok.data_ptr(), oc.data_ptr(),
+                                scratch.data_ptr(),
+                                kernels.stream_ptr(tk)) == 0
+    torch.cuda.synchronize()
+    for name, b in bufs.items():
+        size = b.numel() - 2 * g
+        assert bool((b[:g] == guard).all()), name
+        assert bool((b[g + size:] == guard).all()), name
+    wk, wc = compact.compact_pairs_plain(tk, tc)
+    assert torch.equal(ok, wk) and torch.equal(oc, wc)
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_compact_tile_and_unaligned_inputs(dev, shift):
+    """The tile the tests assume is the kernel's; inputs that do not start
+    on a 16-byte boundary (views one to three elements in) take the scalar
+    loads and still equal the plain version."""
+    assert kernels.lib().kx_compact_tile() == COMPACT_TILE
+    n = 5 * COMPACT_TILE + 21
+    rng = np.random.default_rng(shift)
+    keys = rng.integers(0, 1 << 62, n + shift, dtype=np.int64)
+    keys[rng.random(n + shift) < 0.5] = S
+    counts = rng.integers(1, 1 << 30, n + shift).astype(np.int32)
+    tk = torch.from_numpy(keys).to(dev)[shift:]
+    tc = torch.from_numpy(counts).to(dev)[shift:]
+    assert tk.data_ptr() % 16 or tc.data_ptr() % 16
     gk, gc = compact.compact_pairs(tk, tc)
     wk, wc = compact.compact_pairs_plain(tk.cpu(), tc.cpu())
     assert torch.equal(gk.cpu(), wk) and torch.equal(gc.cpu(), wc)
