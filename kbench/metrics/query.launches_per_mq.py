@@ -1,0 +1,12 @@
+"""Kernels launched in the traced stretch of query batches, per 10^6 queries."""
+
+UNIT = "count"
+LAYER = "device query: query/device_model.py"
+MOVES = "query_mq_per_s"
+
+
+def read(ctx):
+    t = ctx.trace
+    if t is None or not t.kernels or not ctx.queries:
+        return None
+    return len(t.kernels) / (ctx.queries / 1e6)
