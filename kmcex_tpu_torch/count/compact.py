@@ -6,7 +6,9 @@ moves every pair whose key is not SENTINEL (``-1`` as int64) to the front
 in input order and fills the tail with (SENTINEL, 0); the output is as long
 as the input.  A CPU tensor goes to the plain version (boolean-mask select
 + pad); a CUDA tensor goes to ``csrc/compact.cu`` (one pass with decoupled
-look-back, then the tail fill), or the wrapper raises.
+look-back, then the tail fill), or the wrapper raises.  Every call, on either
+device, adds its pairs to the current ``utils.timing`` record
+(``compact_pairs.pairs``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from kmcex_tpu_torch.native import kernels
+from kmcex_tpu_torch.utils import timing
 
 SENTINEL = -1
 # tiles that kx_compact_pairs takes (it refuses more)
@@ -43,6 +46,7 @@ def _check_tiles(n: int, tile: int) -> int:
 def compact_pairs(keys: torch.Tensor, counts: torch.Tensor):
     """(int64 keys, int32 counts) -> (keys, counts) with the non-SENTINEL
     pairs first, in order, and a (SENTINEL, 0) tail."""
+    timing.count("compact_pairs.pairs", keys.numel())
     if keys.device.type == "cpu" and counts.device.type == "cpu":
         return compact_pairs_plain(keys, counts)
     kernels.require_cuda(keys, torch.int64, "keys")

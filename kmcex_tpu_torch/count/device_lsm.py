@@ -63,7 +63,6 @@ import json
 import os
 import shutil
 import tempfile
-import time
 import warnings
 
 import numpy as np
@@ -81,6 +80,7 @@ from kmcex_tpu_torch.count.extract import (
     sorted_u64,
 )
 from kmcex_tpu_torch.count.sort import merge_sorted_u64
+from kmcex_tpu_torch.utils import timing
 from kmcex_tpu_torch.utils.device import resolve_device
 from kmcex_tpu_torch.utils.timing import verbose
 
@@ -189,13 +189,17 @@ def _stream_table(u, c, n_real: int, ci: int):
 
     def chunks():
         for hk, hc, done in pending:
-            if done is not None:
-                done.synchronize()
-            ku = hk.numpy().view(np.uint64)
-            kc = hc.numpy().view(np.uint32)
-            keep = kc >= ci
-            if keep.any():
-                yield ku[keep], kc[keep]
+            with timing.span("table.pull_wait"):
+                if done is not None:
+                    done.synchronize()
+            timing.count("table.pairs", hk.numel())
+            with timing.span("table.host_prep"):
+                ku = hk.numpy().view(np.uint64)
+                kc = hc.numpy().view(np.uint32)
+                keep = kc >= ci
+                out = (ku[keep], kc[keep]) if keep.any() else None
+            if out is not None:
+                yield out
 
     return chunks()
 
@@ -346,7 +350,6 @@ class DeviceCountAccumulator:
                             "merge_pass_seconds": 0.0}
         # set by finalize_stream
         self.device_bloom = None
-        self.finalize_phases: dict[str, float] = {}
         self.table_bytes_to_host = 0
 
     def add_batch(self, codes) -> None:
@@ -365,6 +368,7 @@ class DeviceCountAccumulator:
         n_windows = packed.shape[0] * (L - self.k + 1)
         kmers, _ = extract_canonical_packed(packed.to(self.device),
                                             maskbits.to(self.device), self.k)
+        timing.count("count.windows", n_windows)
         self._push_raw(kmers, n_windows)
 
     def _push_raw(self, kmers: torch.Tensor, n_windows: int) -> None:
@@ -378,11 +382,14 @@ class DeviceCountAccumulator:
         self.tier_events["raw_collapses"] += 1
         if not self.raw:
             return
-        flat = torch.cat(self.raw) if len(self.raw) > 1 else self.raw[0]
-        self.raw = []
-        self.raw_elems = 0
-        uniq, counts, nu = sort_count_unique(flat)
-        self._after_collapse(uniq, counts, nu)
+        with timing.span("count.collapse"):
+            flat = torch.cat(self.raw) if len(self.raw) > 1 else self.raw[0]
+            self.raw = []
+            self.raw_elems = 0
+            timing.count("count.collapse.keys", flat.numel())
+            uniq, counts, nu = sort_count_unique(flat)
+            uniq, counts, size = self._padded_run(uniq, counts, nu)
+        self._place_run(uniq, counts, size)
 
     def _shrink(self, u, c, size: int, nu):
         if size >= self.SHRINK_THRESHOLD:
@@ -391,7 +398,7 @@ class DeviceCountAccumulator:
                 u, c, size = u[:shrunk], c[:shrunk], shrunk
         return u, c, size
 
-    def _after_collapse(self, uniq, counts, nu) -> None:
+    def _padded_run(self, uniq, counts, nu):
         uniq, counts, size = self._shrink(uniq, counts, uniq.numel(), nu)
         # runs are pow2-padded so merge size classes stay logarithmic
         psize = _next_pow2(size)
@@ -400,6 +407,9 @@ class DeviceCountAccumulator:
             uniq = torch.cat([uniq, uniq.new_full((pad,), SENTINEL)])
             counts = torch.cat([counts, counts.new_zeros(pad)])
             size = psize
+        return uniq, counts, size
+
+    def _place_run(self, uniq, counts, size: int) -> None:
         if size >= self.spill_threshold:
             self._spill(uniq, counts)
         else:
@@ -410,8 +420,10 @@ class DeviceCountAccumulator:
         self.tier_events["device_merges"] += 1
         kb, cb, sb = self.runs.pop()
         ka, ca, sa = self.runs.pop()
-        u, c, nu = _merge_runs(ka, ca, kb, cb)
-        u, c, size = self._shrink(u, c, sa + sb, nu)
+        with timing.span("count.merge"):
+            timing.count("count.merge.keys", ka.numel() + kb.numel())
+            u, c, nu = _merge_runs(ka, ca, kb, cb)
+            u, c, size = self._shrink(u, c, sa + sb, nu)
         if size >= self.spill_threshold:
             self._spill(u, c)
         else:
@@ -429,9 +441,9 @@ class DeviceCountAccumulator:
 
     # -- host level ------------------------------------------------------
     def _timed_host_merge(self, ka, ca, kb, cb):
-        t = time.time()
-        out = native.merge_runs(ka, ca, kb, cb)
-        self.spill_stats["host_merge_seconds"] += time.time() - t
+        with timing.span("spill.host_merge") as sp:
+            out = native.merge_runs(ka, ca, kb, cb)
+        self.spill_stats["host_merge_seconds"] += sp.seconds
         return out
 
     def _spill(self, u: torch.Tensor, c: torch.Tensor) -> None:
@@ -442,10 +454,10 @@ class DeviceCountAccumulator:
         bit pattern), never cast."""
         if u.device.type == "cuda":
             torch.cuda.synchronize(u.device)  # time the copy, not the queue
-        t = time.time()
-        ku = u.cpu().numpy().view(np.uint64)
-        kc = c.cpu().numpy().view(np.uint32)
-        self.spill_stats["copy_seconds"] += time.time() - t
+        with timing.span("spill.copy") as sp:
+            ku = u.cpu().numpy().view(np.uint64)
+            kc = c.cpu().numpy().view(np.uint32)
+        self.spill_stats["copy_seconds"] += sp.seconds
         self.spill_stats["copy_bytes"] += ku.nbytes + kc.nbytes
         real = ku != _U64_SENTINEL
         ku, kc = ku[real], kc[real]
@@ -533,10 +545,10 @@ class DeviceCountAccumulator:
         returned iterator is exhausted or closed — see also close()."""
         runs = [self._open_disk_run(p) for p in self.disk_runs]
         runs += self.host_runs
-        t = time.time()
-        total, hist, it = one_pass_finalize(runs, ci, cs, self._disk_dir,
-                                            cleanup=self.close)
-        self.spill_stats["merge_pass_seconds"] += time.time() - t
+        with timing.span("spill.merge_pass") as sp:
+            total, hist, it = one_pass_finalize(runs, ci, cs, self._disk_dir,
+                                                cleanup=self.close)
+        self.spill_stats["merge_pass_seconds"] += sp.seconds
         del runs  # drop the memmaps so the run files can be unlinked
         self.host_runs = []
         self._unlink_disk_runs()
@@ -708,7 +720,6 @@ class DeviceCountAccumulator:
         and the pull of the filter bytes come last.  Sets
         ``self.device_bloom`` to the fed DeviceBloomBuilder (None when no
         build ran)."""
-        fin = self.finalize_phases
         total = int(flat[0])
         hist = flat[1:4].astype(np.int64)
         n_real = int(flat[4])
@@ -720,26 +731,23 @@ class DeviceCountAccumulator:
                 if verbose():
                     print(f"   device bloom build not taken ({e}); the "
                           f"host inserts")
-        t = time.time()
         if bloom is not None and drop_low:
-            bf_num = 1 if ci == 1 else 3
-            su, sc, flat2 = _drop_compact(u, c, ci + bf_num)
-            n_stream = int(flat2[4])
-            fin["drop_low"] = time.time() - t
-            t = time.time()
+            with timing.span("finalize.drop_low"):
+                bf_num = 1 if ci == 1 else 3
+                su, sc, flat2 = _drop_compact(u, c, ci + bf_num)
+                n_stream = int(flat2[4])
         else:
             su, sc, n_stream = u, c, n_real
-        chunks = iter(())
-        if total:
-            self.table_bytes_to_host = n_stream * (su.element_size()
-                                                   + sc.element_size())
-            chunks = _stream_table(su, sc, n_stream, ci)
-        fin["copy_dispatch"] = time.time() - t
+        with timing.span("finalize.copy_dispatch"):
+            chunks = iter(())
+            if total:
+                self.table_bytes_to_host = n_stream * (su.element_size()
+                                                       + sc.element_size())
+                chunks = _stream_table(su, sc, n_stream, ci)
         if bloom is not None:
-            t = time.time()
-            bloom.feed_table(u, c, n_real)
-            bloom.start_pull()
-            fin["bloom_feed_dispatch"] = time.time() - t
+            with timing.span("finalize.bloom_feed_dispatch"):
+                bloom.feed_table(u, c, n_real)
+                bloom.start_pull()
         self.device_bloom = bloom
         return total, hist, chunks
 
@@ -787,7 +795,6 @@ class DeviceCountAccumulator:
         cs = min(int(cs), _U32_MAX)
         self.device_bloom = None
         self.table_bytes_to_host = 0
-        self.finalize_phases = {}
         if (not self.runs and not self.host_runs and not self.disk_runs
                 and self.raw):
             u, c, flat = _fused_finalize(self.raw, ci, cs)

@@ -37,9 +37,8 @@ from kmcex_tpu_torch.model.device_bloom import (
 from kmcex_tpu_torch.model.kmodel import KModel, get_model, split_chunk
 from kmcex_tpu_torch.parallel import distributed
 from kmcex_tpu_torch.parallel.sharded import ShardedCountAccumulator, make_mesh
-from kmcex_tpu_torch.utils import prefetch_iterator
+from kmcex_tpu_torch.utils import prefetch_iterator, timing
 from kmcex_tpu_torch.utils.device import resolve_device
-from kmcex_tpu_torch.utils.timing import Phases, device_trace
 
 
 @dataclasses.dataclass
@@ -50,7 +49,11 @@ class PipelineStats:
     distinct_kmers: int = 0
     count_seconds: float = 0.0
     encode_seconds: float = 0.0
+    # seconds summed per span name (utils/timing), every thread of the build
     phases: dict = dataclasses.field(default_factory=dict)
+    # counter totals of the build's record (windows, reads, pairs, kernel
+    # operations' elements, ...)
+    counters: dict = dataclasses.field(default_factory=dict)
     # tier-transition counts from the accumulator (raw collapses, device
     # merges, host and disk spills)
     tiers: dict = dataclasses.field(default_factory=dict)
@@ -77,10 +80,24 @@ def _seg_len_for(input_spec: str, k: int, seg_len: int | None) -> int:
 def _to_device(device):
     def put(batch):
         packed, maskbits = batch
-        return (torch.from_numpy(packed).to(device),
-                torch.from_numpy(maskbits).to(device))
+        with timing.span("ingest.h2d"):
+            out = (torch.from_numpy(packed).to(device),
+                   torch.from_numpy(maskbits).to(device))
+        timing.count("ingest.h2d.bytes", packed.nbytes + maskbits.nbytes)
+        return out
 
     return put
+
+
+def _parsed(stream):
+    """Stage A: the stream's batches, each batch's parse and pack a span,
+    with the reads and bases it took."""
+    reads = bases = 0
+    for item in timing.timed(stream, "ingest.parse"):
+        timing.count("ingest.reads", stream.reads - reads)
+        timing.count("ingest.bases", stream.bases - bases)
+        reads, bases = stream.reads, stream.bases
+        yield item
 
 
 def _to_shards(mesh):
@@ -131,7 +148,7 @@ def count_fastq(
         mesh = mesh or _default_mesh(device)
     else:
         device = resolve_device(device)
-    t0 = time.time()
+    t0 = time.perf_counter()
     seg_len = _seg_len_for(input_spec, k, seg_len)
     if accumulator == "device":
         stream = fastq.SegmentStream(input_spec, k, seg_len, batch_segs,
@@ -163,7 +180,7 @@ def count_fastq(
         bases=stream.bases,
         windows=acc.total_windows,
         distinct_kmers=len(kmers),
-        count_seconds=time.time() - t0,
+        count_seconds=time.perf_counter() - t0,
         tiers=dict(getattr(acc, "tier_events", {})),
     )
     return kmers, counts, stats
@@ -223,16 +240,20 @@ def count_encode(
     byte-range position and raises).  ``KMCEX_CRASH_AFTER_BATCHES=N`` raises
     after N batches of this call (fault injection for the resume tests).
 
-    ``KMCEX_TRACE_DIR`` writes a torch.profiler trace of the whole call."""
-    with device_trace("count_encode"):
+    The call is one record of ``utils.timing`` (root span ``build``): its
+    span sums and counters land on ``stats.phases`` and ``stats.counters``.
+    ``KMCEX_TRACE_DIR`` writes a torch.profiler trace of the whole call with
+    the record's spans merged in."""
+    with timing.device_trace("count_encode"), timing.record("build") as tr:
         return _count_encode(input_spec, k, ci, cs, num_hash, num_bit,
                              seg_len, batch_segs, keep_pairs, db_path,
-                             accumulator, mesh, ckpt_dir, ckpt_every, device)
+                             accumulator, mesh, ckpt_dir, ckpt_every, device,
+                             tr)
 
 
 def _count_encode(input_spec, k, ci, cs, num_hash, num_bit, seg_len,
                   batch_segs, keep_pairs, db_path, accumulator, mesh,
-                  ckpt_dir, ckpt_every, device):
+                  ckpt_dir, ckpt_every, device, tr):
     if accumulator not in ("device", "sharded"):
         raise ValueError(
             f"accumulator must be device|sharded, got {accumulator!r}")
@@ -241,9 +262,8 @@ def _count_encode(input_spec, k, ci, cs, num_hash, num_bit, seg_len,
         mesh = mesh or _default_mesh(device)
     else:
         device = resolve_device(device)
-    ph = Phases()
-    t0 = time.time()
-    with ph.phase("sniff_read_length"):
+    t0 = time.perf_counter()
+    with tr.span("sniff_read_length"):
         seg_len = _seg_len_for(input_spec, k, seg_len)
     ckpt_fp = {"input": str(input_spec), "k": int(k),
                "seg_len": int(seg_len), "batch_segs": int(batch_segs),
@@ -260,7 +280,7 @@ def _count_encode(input_spec, k, ci, cs, num_hash, num_bit, seg_len,
         stream = None
         acc = ShardedCountAccumulator(mesh, k, max(1, batch_segs // mesh.n),
                                       seg_len, packed=True)
-        with ph.phase("stream+extract"):
+        with tr.span("stream+extract"):
             n_reads, n_bases = distributed.stream_into_accumulator(
                 acc, input_spec, k, seg_len)
     else:
@@ -300,15 +320,19 @@ def _count_encode(input_spec, k, ci, cs, num_hash, num_bit, seg_len,
         # thread B copies to the device; the main thread only enqueues
         # device work.  Both queues are FIFO, so batches arrive in stream
         # order; the skip drops already-counted batches before their copy.
-        with ph.phase("stream+extract"):
-            parsed = prefetch_iterator(iter(stream), depth=2)
+        with tr.span("stream+extract"):
+            parsed = prefetch_iterator(_parsed(stream), depth=2,
+                                       name="kmcex.parse")
             if skip:
                 base = parsed
                 parsed = (x for j, x in enumerate(base) if j >= skip)
             nb = skip
-            for packed, maskbits in prefetch_iterator(parsed, depth=2,
-                                                      transform=put):
-                acc.add_batch_packed(packed, maskbits)
+            batches = prefetch_iterator(parsed, depth=2, transform=put,
+                                        name="kmcex.h2d")
+            for packed, maskbits in timing.timed(batches,
+                                                 "count.batch_wait"):
+                with tr.span("count.add_batch"):
+                    acc.add_batch_packed(packed, maskbits)
                 nb += 1
                 if ckpt_dir and ckpt_every and nb % ckpt_every == 0:
                     acc.checkpoint(ckpt_dir, extra={"fingerprint": ckpt_fp,
@@ -328,10 +352,8 @@ def _count_encode(input_spec, k, ci, cs, num_hash, num_bit, seg_len,
                     k, ci, cs, num_hash, hist, device=device),
                 drop_low=(not keep_pairs) and db_path is None,
             )
-    with ph.phase("merge+stats"):
+    with tr.span("merge+stats"):
         total, low_hist, chunks = acc.finalize_stream(ci, cs, **fin_kwargs)
-    for name, secs in acc.finalize_phases.items():
-        ph.add(f"finalize.{name}", secs)
 
     bf_num = 1 if ci == 1 else 3
     writer = None
@@ -346,17 +368,21 @@ def _count_encode(input_spec, k, ci, cs, num_hash, num_bit, seg_len,
         if keep_pairs:
             collected.append((ku, kc))
         if writer is not None:
-            writer.write_chunk(ku, kc.astype(np.uint64))
-        return split_chunk(ku, kc, ci, bf_num)
+            with timing.span("spool.db_write"):
+                writer.write_chunk(ku, kc.astype(np.uint64))
+            timing.count("spool.pairs", len(ku))
+        with timing.span("table.host_prep"):
+            return split_chunk(ku, kc, ci, bf_num)
 
     # a producer thread owns the pulls, the DB spool and the counter routing
     # so the (GIL-releasing) native encode on this thread only feeds
-    chunks = prefetch_iterator(chunks, depth=4, transform=produce)
-    t_count = time.time() - t0
+    chunks = prefetch_iterator(chunks, depth=4, transform=produce,
+                               name="kmcex.table")
+    t_count = time.perf_counter() - t0
 
     km = get_model(ci, cs, num_hash, num_bit)
     try:
-        with ph.phase("transfer+encode"):
+        with tr.span("transfer+encode"):
             km.init_from_chunks(chunks, k, total, low_hist,
                                 device_bloom=acc.device_bloom)
     except BaseException:
@@ -373,9 +399,7 @@ def _count_encode(input_spec, k, ci, cs, num_hash, num_bit, seg_len,
             os.unlink(os.path.join(ckpt_dir, "manifest.json"))
         except OSError:
             pass
-    for name, secs in km.encode_phases.items():
-        ph.add(f"encode.{name}", secs)
-    t_total = time.time() - t0
+    t_total = time.perf_counter() - t0
     stats = PipelineStats(
         reads=stream.reads if n_reads is None else n_reads,
         bases=stream.bases if n_bases is None else n_bases,
@@ -383,7 +407,8 @@ def _count_encode(input_spec, k, ci, cs, num_hash, num_bit, seg_len,
         distinct_kmers=total,
         count_seconds=t_count,
         encode_seconds=t_total - t_count,
-        phases=dict(ph.seconds),
+        phases=dict(tr.seconds),
+        counters=dict(tr.counters),
         tiers=dict(acc.tier_events),
         table_bytes_to_host=acc.table_bytes_to_host,
         spill=dict(acc.spill_stats),

@@ -15,7 +15,10 @@ always UNSIGNED, so SENTINEL sorts last, and always stable.
   come first.
 
 A CPU tensor goes to the plain PyTorch version (``*_plain``); a CUDA tensor
-goes to the kernel, or the wrapper raises.  Unlike the TPU entry points the
+goes to the kernel, or the wrapper raises.  Every call, on either device,
+adds its element counts to the current ``utils.timing`` record:
+``sort_u64.keys`` and ``sort_u64.payload``, ``merge_sorted_u64.a`` and
+``merge_sorted_u64.b``.  Unlike the TPU entry points the
 results are exactly as long as the input (no power-of-two padding).
 """
 
@@ -25,6 +28,7 @@ import torch
 
 from kmcex_tpu_torch.core.codec import BIAS
 from kmcex_tpu_torch.native import kernels
+from kmcex_tpu_torch.utils import timing
 
 # csrc/sort.cu status words hold a 30-bit count
 MAX_SORT_N = 1 << 30
@@ -61,6 +65,8 @@ def sort_u64(keys: torch.Tensor, payload: torch.Tensor | None = None):
     payload that follows its key.  Returns keys, or (keys, payload), in new
     tensors; the inputs are not written.  On the card n < ``MAX_SORT_N``."""
     ts = (keys,) if payload is None else (keys, payload)
+    timing.count("sort_u64.keys", keys.numel())
+    timing.count("sort_u64.payload", 0 if payload is None else payload.numel())
     if _is_cpu(*ts):
         return sort_u64_plain(keys, payload)
     kernels.require_cuda(keys, torch.int64, "keys")
@@ -103,6 +109,8 @@ def merge_sorted_u64(a: torch.Tensor, ca: torch.Tensor, b: torch.Tensor,
     run of length len(a) + len(b), in new tensors; the inputs are not
     written.  Unsigned order, ``a``'s entries first on equal keys.  Any run
     lengths; SENTINEL-padded runs merge their padding to the tail."""
+    timing.count("merge_sorted_u64.a", a.numel())
+    timing.count("merge_sorted_u64.b", b.numel())
     if _is_cpu(a, ca, b, cb):
         return merge_sorted_u64_plain(a, ca, b, cb)
     for t, dt, name in ((a, torch.int64, "a"), (ca, torch.int32, "ca"),

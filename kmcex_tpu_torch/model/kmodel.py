@@ -29,6 +29,7 @@ from kmcex_tpu_torch.core import codec
 from kmcex_tpu_torch.core.occu_bin import OccuBin
 from kmcex_tpu_torch.model.bloom import BloomBank
 from kmcex_tpu_torch.model.rest import KRestData
+from kmcex_tpu_torch.utils import timing
 
 _U64 = np.uint64
 
@@ -66,7 +67,8 @@ def split_chunk(kmers_u64: np.ndarray, counts: np.ndarray, ci: int,
 
 class _BloomWorker:
     """The host Bloom insert on its own thread, fed through a bounded
-    queue.  A raised insert must not kill the thread silently: the bounded
+    queue; each insert is an ``encode.bloom_insert`` span of the build's
+    record.  A raised insert must not kill the thread silently: the bounded
     queue would deadlock the producer and a "successful" build would miss
     inserts.  On failure the worker keeps draining (so ``put`` never
     blocks) and ``error`` holds what was raised, for the build thread to
@@ -74,13 +76,14 @@ class _BloomWorker:
 
     def __init__(self, bloom: BloomBank, k: int):
         self.error: BaseException | None = None
-        self._busy = 0.0
         self._q: "queue.Queue" = queue.Queue(maxsize=8)
-        self._thread = threading.Thread(target=self._run, args=(bloom, k),
-                                        daemon=True)
+        self._thread = threading.Thread(
+            target=self._run, args=(bloom, k, timing.current()), daemon=True,
+            name="kmcex.bloom")
         self._thread.start()
 
-    def _run(self, bloom: BloomBank, k: int) -> None:
+    def _run(self, bloom: BloomBank, k: int, tracer) -> None:
+        timing.adopt(tracer)
         while True:
             item = self._q.get()
             if item is None:
@@ -88,21 +91,19 @@ class _BloomWorker:
             if self.error is not None:
                 continue  # drain so the producer never blocks
             i, kmers = item
-            t = time.time()
             try:
-                bloom.insert(i, kmers, k, n_threads=_bloom_threads())
+                with timing.span("encode.bloom_insert"):
+                    bloom.insert(i, kmers, k, n_threads=_bloom_threads())
             except BaseException as e:  # noqa: BLE001 — re-raised by the build
                 self.error = e
-            self._busy += time.time() - t
 
     def put(self, i: int, kmers: np.ndarray) -> None:
         self._q.put((i, kmers))
 
-    def join(self) -> float:
-        """Stop the worker; returns the seconds it spent inserting."""
+    def join(self) -> None:
+        """Stop the worker."""
         self._q.put(None)
         self._thread.join()
-        return self._busy
 
 
 class KModel:
@@ -166,8 +167,11 @@ class KModel:
         insertion entirely: the finished filter bytes are pulled into the
         bank at the end (order-free scatter-OR makes the result
         bit-identical to the host build), and any low-count pairs still
-        present in the chunks are NOT re-inserted."""
-        t0 = time.time()
+        present in the chunks are NOT re-inserted.
+
+        Its phases are spans ``encode.*`` of the current ``utils.timing``
+        record (each present, 0.0 where it never ran)."""
+        t0 = time.perf_counter()
         self.kmer_length = int(k)
         self.total_kmer_count = int(total_kmer_count)
         kmer_counts = np.zeros(3, dtype=np.uint64)
@@ -177,10 +181,9 @@ class KModel:
         self._init_km_parameter(self.km_kmercount)
         self.kld = KRestData(k)
 
-        ph = self.encode_phases = {
-            "chunk_wait": 0.0, "array_feed": 0.0, "array_finish": 0.0,
-            "rest_build": 0.0, "route_split": 0.0,
-        }
+        for name in ("chunk_wait", "array_feed", "array_finish", "rest_build",
+                     "route_split"):
+            timing.add(f"encode.{name}", 0.0)
         enc = native.BitArrayEncoder(
             k, self.n_bits, self.n_hash, self.occu_bin.occ2bin_lut,
             self.bit1.reshape(-1), self.bit2.reshape(-1), self.km_bit_size,
@@ -189,66 +192,54 @@ class KModel:
         )
         if device_bloom is not None:
             rest_kmers, rest_occs = self._init_from_chunks_device_bloom(
-                chunk_iter, enc, device_bloom, ph)
+                chunk_iter, enc, device_bloom)
         else:
             # Pass 2: route. BF inserts are commutative scatter-ORs —
             # order-free, so they run on a worker thread (the native insert
             # releases the GIL) overlapping the order-dependent
             # coupled-array feed on this thread.
+            timing.add("encode.bloom_insert", 0.0)
             worker = _BloomWorker(self.bloom, k)
             try:
                 rest_kmers, rest_occs = self._feed_arrays(
-                    chunk_iter, enc, ph, worker.put)
+                    chunk_iter, enc, worker.put)
             finally:
-                ph["bloom_insert"] = worker.join()
+                worker.join()
             if worker.error is not None:
                 raise worker.error
-        t = time.time()
-        if len(rest_kmers):
-            self.kld.push_back(rest_kmers, rest_occs)
-        self.kld.build()
-        ph["rest_build"] = time.time() - t
-        self.build_time_cost = time.time() - t0
+        with timing.span("encode.rest_build"):
+            if len(rest_kmers):
+                self.kld.push_back(rest_kmers, rest_occs)
+            self.kld.build()
+        self.build_time_cost = time.perf_counter() - t0
 
-    def _feed_arrays(self, chunk_iter, enc, ph, put_low):
+    def _feed_arrays(self, chunk_iter, enc, put_low):
         """Feed the order-dependent coupled-array encoder from the chunk
         stream; every chunk's low-count k-mers go to ``put_low(i, kmers)``
         (None: they were inserted elsewhere).  Returns the rest pairs."""
-        it = iter(chunk_iter)
-        while True:
-            t = time.time()
-            item = next(it, None)
-            ph["chunk_wait"] += time.time() - t
-            if item is None:
-                break
+        for item in timing.timed(chunk_iter, "encode.chunk_wait"):
             if isinstance(item, PreSplitChunk):
                 sp = item  # routing already paid on the producer thread
             else:
-                t = time.time()
-                sp = split_chunk(item[0], item[1], self.ci, self.bf_num)
-                ph["route_split"] += time.time() - t
+                with timing.span("encode.route_split"):
+                    sp = split_chunk(item[0], item[1], self.ci, self.bf_num)
             if put_low is not None:
                 for i, low in enumerate(sp.lows):
                     put_low(i, low)
             if len(sp.arr_kmers):
-                t = time.time()
-                enc.feed(sp.arr_kmers, sp.arr_counts)
-                ph["array_feed"] += time.time() - t
-        t = time.time()
-        rest = enc.finish()
-        ph["array_finish"] = time.time() - t
-        return rest
+                with timing.span("encode.array_feed"):
+                    enc.feed(sp.arr_kmers, sp.arr_counts)
+        with timing.span("encode.array_finish"):
+            return enc.finish()
 
-    def _init_from_chunks_device_bloom(self, chunk_iter, enc, device_bloom,
-                                       ph):
+    def _init_from_chunks_device_bloom(self, chunk_iter, enc, device_bloom):
         """Encode loop when the Bloom bank was built on the device: no host
         Bloom worker — this thread only feeds the coupled-array encoder, and
         the finished filter bytes are pulled at the end (the copy has been
         in flight since the count finalize)."""
-        rest = self._feed_arrays(chunk_iter, enc, ph, None)
-        t = time.time()
-        device_bloom.into(self.bloom)
-        ph["bloom_pull"] = time.time() - t
+        rest = self._feed_arrays(chunk_iter, enc, None)
+        with timing.span("encode.bloom_pull"):
+            device_bloom.into(self.bloom)
         return rest
 
     def init(self, db_path: str) -> None:

@@ -283,7 +283,6 @@ class ShardedCountAccumulator:
         self.shard_sizes: list[int] = []
         # set by finalize_stream when a bloom_factory ran on the mesh
         self.device_bloom = None
-        self.finalize_phases: dict[str, float] = {}
         self.table_bytes_to_host = 0
 
     # -- views over the shards ---------------------------------------------

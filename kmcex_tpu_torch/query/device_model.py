@@ -50,6 +50,7 @@ from kmcex_tpu_torch.core.murmur import (
     seeds_tensor,
 )
 from kmcex_tpu_torch.model.kmodel import KModel
+from kmcex_tpu_torch.utils import timing
 from kmcex_tpu_torch.utils.device import resolve_device
 
 _EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)  # no canonical k-mer is all-ones
@@ -425,12 +426,17 @@ class DeviceKModel:
         out = torch.empty(n, dtype=torch.int32, device=q.device)
         amb = torch.empty(n, dtype=torch.bool, device=q.device)
         for a in range(0, n, tile):
-            out[a : a + tile], amb[a : a + tile] = self._main(q[a : a + tile])
-        idx = amb.nonzero()[:, 0]  # one sync: how many to resolve
+            with timing.span("query.main"):
+                out[a : a + tile], amb[a : a + tile] = self._main(
+                    q[a : a + tile])
+        with timing.span("query.select"):
+            idx = amb.nonzero()[:, 0]  # one sync: how many to resolve
         self.n_resolved += idx.numel()
+        timing.count("query.resolved", idx.numel())
         for a in range(0, idx.numel(), self.RESOLVE_TILE):
-            sel = idx[a : a + self.RESOLVE_TILE]
-            out[sel] = self._resolve(q[sel])
+            with timing.span("query.resolve"):
+                sel = idx[a : a + self.RESOLVE_TILE]
+                out[sel] = self._resolve(q[sel])
         return out
 
     def kmer_to_occ(self, kmers_u64, tile: int | None = None) -> np.ndarray:
@@ -438,14 +444,20 @@ class DeviceKModel:
         canonicalized on the device; int32 answers of the same shape.
 
         Arbitrarily large batches run in groups of GROUP tiles: one upload,
-        the two passes of ``query_tensor``, one download per group."""
-        qa = np.asarray(kmers_u64, dtype=np.uint64)
-        q = np.ascontiguousarray(qa.reshape(-1)).view(np.int64)
-        tile = tile or self.TILE
-        out = np.zeros(len(q), dtype=np.int32)
-        self.n_resolved = 0
-        step = tile * self.GROUP
-        for a in range(0, len(q), step):
-            qd = torch.from_numpy(q[a : a + step]).to(self.device)
-            out[a : a + step] = self.query_tensor(qd, tile).cpu().numpy()
-        return out.reshape(qa.shape)
+        the two passes of ``query_tensor``, one download per group.  The
+        call is one record of ``utils.timing`` (root span ``query``)."""
+        with timing.record("query"):
+            qa = np.asarray(kmers_u64, dtype=np.uint64)
+            q = np.ascontiguousarray(qa.reshape(-1)).view(np.int64)
+            timing.count("query.queries", len(q))
+            tile = tile or self.TILE
+            out = np.zeros(len(q), dtype=np.int32)
+            self.n_resolved = 0
+            step = tile * self.GROUP
+            for a in range(0, len(q), step):
+                with timing.span("query.upload"):
+                    qd = torch.from_numpy(q[a : a + step]).to(self.device)
+                ans = self.query_tensor(qd, tile)
+                with timing.span("query.download"):
+                    out[a : a + step] = ans.cpu().numpy()
+            return out.reshape(qa.shape)

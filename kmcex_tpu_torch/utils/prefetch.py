@@ -2,7 +2,8 @@
 
 The host-side FASTQ parse and the device compute are independent stages; a
 producer thread with a small bounded queue overlaps them (CUDA work is
-enqueued asynchronously, so the consumer loop is cheap).
+enqueued asynchronously, so the consumer loop is cheap).  The producer
+records into the consumer's ``utils.timing`` record.
 """
 
 from __future__ import annotations
@@ -11,20 +12,26 @@ import queue
 import threading
 from typing import Callable, Iterable, Iterator, TypeVar
 
+from kmcex_tpu_torch.utils import timing
+
 T = TypeVar("T")
 
 _STOP = object()
 
 
 def prefetch_iterator(
-    it: Iterable[T], depth: int = 3, transform: Callable[[T], T] | None = None
+    it: Iterable[T], depth: int = 3, transform: Callable[[T], T] | None = None,
+    name: str = "kmcex.prefetch",
 ) -> Iterator[T]:
     """``transform`` (e.g. a host->device ``Tensor.to``) runs in the producer thread so
-    host->device copies overlap the consumer's dispatch work."""
+    host->device copies overlap the consumer's dispatch work.  ``name``
+    names the producer thread (a track of the trace)."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     err: list[BaseException] = []
+    tracer = timing.current()
 
     def worker() -> None:
+        timing.adopt(tracer)
         try:
             for item in it:
                 if transform is not None:
@@ -35,7 +42,7 @@ def prefetch_iterator(
         finally:
             q.put(_STOP)
 
-    t = threading.Thread(target=worker, daemon=True)
+    t = threading.Thread(target=worker, daemon=True, name=name)
     t.start()
     while True:
         item = q.get()

@@ -750,3 +750,45 @@ def test_uint32_counts_on_the_card(dev):
     assert np.array_equal(out["cuda"][1], out["cpu"][1])
     assert out["cuda"][1][:5].tolist() == [0xFFFFFFFF, 0xFFFFFFFF, 1 << 31,
                                            5, 7]
+
+
+def test_build_spans_meet_the_device_trace(dev, tmp_path, monkeypatch):
+    """A build on the card under ``KMCEX_TRACE_DIR``: the merged trace holds
+    spans of the parse, copy and table threads; the batches' host-to-device
+    copies start inside the copy thread's ``ingest.h2d`` spans and the table
+    chunks' copies end before their ``table.pull_wait`` spans do, on the
+    trace's clock; one kernel launch per counted operation call."""
+    import json
+
+    from kmcex_tpu_torch.count.pipeline import count_encode
+    from kmcex_tpu_torch.tools import trace_check
+
+    rng = np.random.default_rng(8)
+    genome = rng.integers(0, 4, 200_000)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    fq = tmp_path / "r.fastq"
+    with open(fq, "wb") as f:
+        for i, s in enumerate(rng.integers(0, len(genome) - 100, 40_000)):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, acgt[genome[s : s + 100]]
+                                            .tobytes(), b"I" * 100))
+    count_encode(str(fq), k=31, keep_pairs=False, device=dev)  # warm
+    monkeypatch.setenv("KMCEX_TRACE_DIR", str(tmp_path / "tr"))
+    monkeypatch.setenv("KMCEX_RAW_TIER_ELEMS", "500000")
+    kernels.reset_launches()
+    _, _, _, stats = count_encode(str(fq), k=31, keep_pairs=False,
+                                  db_path=str(tmp_path / "db"),
+                                  batch_segs=2048, device=dev)
+    events = json.loads((tmp_path / "tr" / "count_encode.json").read_text())[
+        "traceEvents"]
+    [res] = trace_check.check(events)
+    assert {"kmcex.parse", "kmcex.h2d", "kmcex.table"} <= set(res["threads"])
+    assert res["h2d_copies"] >= 2 * 19 and res["h2d_inside"] >= 0.95, res
+    assert res["dtoh_copies"] >= 2 * 16 and res["dtoh_before"] >= 0.95, res
+    c = stats.counters
+    assert stats.tiers["device_merges"] >= 2
+    ops = {"sort_u64": "sort_u64.keys", "merge_sorted_u64": "merge_sorted_u64.a",
+           "compact_pairs": "compact_pairs.pairs"}
+    calls = {op: sum(1 for e in events if e.get("ph") == "C"
+                     and e["name"] == name) for op, name in ops.items()}
+    assert calls == kernels.LAUNCHES, (calls, kernels.LAUNCHES)
+    assert c["count.windows"] == stats.windows

@@ -200,22 +200,25 @@ def test_kparams_accepts_sharded_and_names_the_backends():
 
 
 def test_phases_report_and_device_trace(fastq, tmp_path, monkeypatch):
-    """Phases.report prints what the JAX package's prints; device_trace is a
+    """The tracer sums span seconds and counters per name; device_trace is a
     no-op without KMCEX_TRACE_DIR and writes a Chrome trace of count_encode
-    with it."""
+    with the build's spans merged in with it."""
     import json
 
-    from kmcex_tpu.utils import timing as jtiming
     from kmcex_tpu_torch.count.pipeline import count_encode
     from kmcex_tpu_torch.utils import timing
 
-    a, b = timing.Phases(), jtiming.Phases()
-    for ph in (a, b):
-        ph.add("stream+extract", 1.25)
-        ph.add("merge+stats", 0.5)
-        ph.add("stream+extract", 0.25)
-    assert a.report() == b.report()
-    assert "(sum of phases)" in a.report() and "2.000s" in a.report()
+    tr = timing.Tracer("build")
+    tr.add("stream+extract", 1.25)
+    tr.add("merge+stats", 0.5)
+    tr.add("stream+extract", 0.25)
+    with tr.span("merge+stats") as sp:
+        pass
+    tr.count("pairs", 3)
+    tr.count("pairs", 4)
+    assert tr.seconds == {"stream+extract": 1.5,
+                          "merge+stats": 0.5 + sp.seconds}
+    assert tr.counters == {"pairs": 7} and tr.spans is None
 
     monkeypatch.delenv("KMCEX_TRACE_DIR", raising=False)
     with timing.device_trace("nothing"):
@@ -225,6 +228,9 @@ def test_phases_report_and_device_trace(fastq, tmp_path, monkeypatch):
     count_encode(str(fastq), k=21, keep_pairs=False, device="cpu")
     trace = json.loads((tmp_path / "traces" / "count_encode.json").read_text())
     assert len(trace["traceEvents"]) > 10
+    names = {e["name"] for e in trace["traceEvents"]
+             if e.get("cat") == timing.CATEGORY}
+    assert {"build", "stream+extract", "ingest.parse"} <= names
 
 
 def test_native_encode_bitarrays_equals_jax():
