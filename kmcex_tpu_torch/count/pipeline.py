@@ -91,12 +91,14 @@ def _to_device(device):
 
 def _parsed(stream):
     """Stage A: the stream's batches, each batch's parse and pack a span,
-    with the reads and bases it took."""
-    reads = bases = 0
+    with the reads and bases it took, and of those bases the ones a
+    multi-threaded segmenter pass took (``ingest.parallel_bases``)."""
+    reads = bases = par = 0
     for item in timing.timed(stream, "ingest.parse"):
         timing.count("ingest.reads", stream.reads - reads)
         timing.count("ingest.bases", stream.bases - bases)
-        reads, bases = stream.reads, stream.bases
+        timing.count("ingest.parallel_bases", stream.parallel_bases - par)
+        reads, bases, par = stream.reads, stream.bases, stream.parallel_bases
         yield item
 
 

@@ -20,9 +20,12 @@ One difference from the JAX module: no silent NumPy fallback.
 
 from __future__ import annotations
 
+import contextlib
 import gzip
+import mmap
 import os
 import pathlib
+import stat
 from typing import Iterator
 
 import numpy as np
@@ -104,6 +107,67 @@ def _open_input(path: str, byte_range: tuple[int, int] | None = None):
             "assign whole files per host instead"
         )
     return _RangeFile(f, *byte_range)
+
+
+# Bytes of a read into the reused buffer (inputs that cannot be mapped).
+_READ_BYTES = 1 << 24
+# Mapped pages are populated this far ahead of the segmenter, in steps of
+# half of it: one madvise a step, not a page fault a 4 KiB page.
+_POPULATE_AHEAD = 1 << 25
+_MADV_POPULATE_READ = 22  # Linux 5.14+; not in Python's mmap module
+
+
+@contextlib.contextmanager
+def _mapping(fd: int, lo: int, hi: int):
+    base = lo - lo % mmap.ALLOCATIONGRANULARITY
+    mm = mmap.mmap(fd, hi - base, access=mmap.ACCESS_READ, offset=base)
+    try:
+        yield mm, lo - base, hi - base
+    finally:
+        mm.close()
+
+
+def _mapped_window(f, byte_range: tuple[int, int] | None):
+    """A context giving (read-only mapping, lo, hi) of a plain regular
+    file's bytes to parse, ``byte_range`` or all, with [lo, hi) their
+    offsets in the mapping; None for a gzip stream or a file that is not
+    regular.  An empty window maps nothing and gives an empty buffer."""
+    raw = f._f if isinstance(f, _RangeFile) else f
+    if isinstance(raw, gzip.GzipFile) or not hasattr(raw, "fileno"):
+        return None
+    st = os.fstat(raw.fileno())
+    if not stat.S_ISREG(st.st_mode):
+        return None
+    lo, hi = byte_range if byte_range is not None else (0, st.st_size)
+    if hi <= lo:
+        return contextlib.nullcontext((b"", 0, 0))
+    return _mapping(raw.fileno(), lo, hi)
+
+
+class _Populate:
+    """Populates a read-only mapping ahead of the parse offset
+    (``MADV_POPULATE_READ``; where the kernel lacks it, ``MADV_WILLNEED``
+    reads ahead and the segmenter's threads take the faults)."""
+
+    def __init__(self, mm: mmap.mmap):
+        self.mm = mm
+        self.done = 0
+        self.advice = _MADV_POPULATE_READ
+
+    def __call__(self, off: int) -> None:
+        size = len(self.mm)
+        if self.done >= min(size, off + _POPULATE_AHEAD // 2):
+            return
+        start = self.done - self.done % mmap.PAGESIZE
+        stop = min(size, off + _POPULATE_AHEAD)
+        try:
+            self.mm.madvise(self.advice, start, stop - start)
+        except OSError:
+            if self.advice == mmap.MADV_WILLNEED:
+                raise
+            self.advice = mmap.MADV_WILLNEED
+            self.mm.madvise(self.advice, start, stop - start)
+        self.done = stop
 
 
 def _record_start_at_or_after(f, pos: int, size: int, is_fasta: bool) -> int:
@@ -357,6 +421,9 @@ class SegmentStream:
         self.byte_range = byte_range
         self.reads = 0
         self.bases = 0
+        # bases segmented by a native call whose fill ran on more than one
+        # thread (the native segmenter's threads are -t)
+        self.parallel_bases = 0
 
     def __iter__(self) -> Iterator:
         if self.use_native:
@@ -373,22 +440,23 @@ class SegmentStream:
             yield from self._iter_numpy()
 
     def _new_buf(self):
+        """A batch buffer; the segmenter writes every byte of its rows, and
+        ``_sealed`` pads the rows it left."""
         if self.packed:
             return (
-                np.zeros((self.batch_segs, self.seg_len // 4), dtype=np.uint8),
-                np.zeros((self.batch_segs, self.seg_len // 8), dtype=np.uint8),
+                np.empty((self.batch_segs, self.seg_len // 4), dtype=np.uint8),
+                np.empty((self.batch_segs, self.seg_len // 8), dtype=np.uint8),
             )
-        return np.full((self.batch_segs, self.seg_len), 255, dtype=np.uint8)
+        return np.empty((self.batch_segs, self.seg_len), dtype=np.uint8)
 
-    def _segment(self, native, arr, is_fasta, phase, buf, row):
+    def _sealed(self, buf, row: int):
+        """The batch with its rows from ``row`` on padded (no base)."""
         if self.packed:
-            return native.segment_buffer_packed(
-                arr, is_fasta, phase, self.k, self.seg_len,
-                buf[0][row:], buf[1][row:],
-            )
-        return native.segment_buffer(
-            arr, is_fasta, phase, self.k, self.seg_len, buf[row:]
-        )
+            buf[0][row:] = 0
+            buf[1][row:] = 0
+        else:
+            buf[row:] = 255
+        return buf
 
     def _iter_native(self, native) -> Iterator:
         buf = self._new_buf()
@@ -396,8 +464,7 @@ class SegmentStream:
         for path in resolve_inputs(self.input_spec):
             with _open_input(path, self.byte_range) as f:
                 head = f.peek(1)[:1] if hasattr(f, "peek") else b""
-                is_fasta = head == b">"
-                if is_fasta:
+                if head == b">":
                     # FASTA goes through the NumPy record-joiner: the native
                     # segmenter is line-at-a-time, so wrapped (60-80 col)
                     # records would lose every k-mer spanning a line break.
@@ -405,47 +472,85 @@ class SegmentStream:
                     # mixed FASTQ/FASTA @lists batch seamlessly.
                     buf, row = yield from self._fasta_into_buf(path, buf, row)
                     continue
-                phase = 0
-                carry = b""
-                eof = False
-                while not eof:
-                    chunk = f.read(1 << 24)
-                    if not chunk:
-                        eof = True
-                        if not carry:
-                            break
-                        data = carry + b"\n"  # flush a final unterminated line
-                        carry = b""
-                    else:
-                        data = carry + chunk if carry else chunk
-                    arr = np.frombuffer(data, dtype=np.uint8)
-                    off = 0
-                    while off < len(arr):
-                        rows, consumed, nr, nb, phase = self._segment(
-                            native, arr[off:], is_fasta, phase, buf, row
-                        )
-                        row += rows
-                        self.reads += nr
-                        self.bases += nb
-                        off += consumed
-                        stalled = consumed == 0 and rows == 0
-                        if stalled and data.find(b"\n", off) == -1:
-                            break  # incomplete tail line -> carry
-                        if stalled and row == 0:
-                            raise ValueError(
-                                "single sequence line needs more than "
-                                f"batch_segs={self.batch_segs} segment rows; "
-                                "raise batch_segs (whole-genome FASTA lines)"
-                            )
-                        if row == self.batch_segs or stalled:
-                            # buffer full (exactly, or the next read needs
-                            # more rows than remain): flush and keep going
-                            yield buf
-                            buf = self._new_buf()
-                            row = 0
-                    carry = data[off:] if off < len(data) else b""
+                window = _mapped_window(f, self.byte_range)
+                if window is None:  # gzip or not a regular file
+                    buf, row = yield from self._read_into_buf(
+                        native, f, buf, row)
+                    continue
+                with window as (mm, lo, hi):
+                    off, phase, buf, row = yield from self._window_into_buf(
+                        native, mm, lo, hi, 0, buf, row, _Populate(mm))
+                    tail = mm[off:hi]
+                if tail:  # a last line with no newline
+                    tail += b"\n"
+                    _, _, buf, row = yield from self._window_into_buf(
+                        native, tail, 0, len(tail), phase, buf, row)
         if row:
-            yield buf
+            yield self._sealed(buf, row)
+
+    def _window_into_buf(self, native, data, off: int, end: int, phase: int,
+                         buf, row: int, populate=None):
+        """Generator: segment the complete lines of ``data[off:end]`` (a
+        buffer with ``find``) into the batch buffer; yields full batches,
+        returns (offset of the first byte not consumed, phase, buf, row).
+        ``populate(off)`` runs before each segmenter call."""
+        arr = np.frombuffer(data, dtype=np.uint8, count=end)
+        while off < end:
+            if populate is not None:
+                populate(off)
+            if self.packed:
+                r = native.segment(arr[off:], False, phase, self.k,
+                                   self.seg_len, buf[0][row:], buf[1][row:])
+            else:
+                r = native.segment(arr[off:], False, phase, self.k,
+                                   self.seg_len, buf[row:])
+            phase = r.phase
+            row += r.rows
+            self.reads += r.reads
+            self.bases += r.bases
+            self.parallel_bases += r.parallel_bases
+            off += r.consumed
+            stalled = r.consumed == 0 and r.rows == 0
+            if stalled and data.find(b"\n", off, end) == -1:
+                break  # incomplete tail line -> the caller carries it
+            if stalled and row == 0:
+                raise ValueError(
+                    "single sequence line needs more than "
+                    f"batch_segs={self.batch_segs} segment rows; "
+                    "raise batch_segs (whole-genome FASTA lines)"
+                )
+            if row == self.batch_segs or stalled:
+                # buffer full (exactly, or the next read needs more rows
+                # than remain): flush and keep going
+                yield self._sealed(buf, row)
+                buf = self._new_buf()
+                row = 0
+        return off, phase, buf, row
+
+    def _read_into_buf(self, native, f, buf, row: int):
+        """Generator: segment a stream that cannot be mapped (gzip) from a
+        reused buffer: ``readinto`` after the carried incomplete line,
+        which moves to the front.  Returns (buf, row)."""
+        store = bytearray(_READ_BYTES)
+        n = phase = 0
+        while True:
+            if n == len(store):  # one line longer than the buffer
+                store.extend(bytes(len(store)))
+            with memoryview(store) as mv:
+                got = f.readinto(mv[n:])
+            if not got:
+                if not n:
+                    return buf, row
+                if n == len(store):
+                    store.append(10)
+                else:
+                    store[n] = 10  # flush a final unterminated line
+                got = 1
+            n += got
+            off, phase, buf, row = yield from self._window_into_buf(
+                native, store, 0, n, phase, buf, row)
+            store[: n - off] = store[off:n]
+            n -= off
 
     def _fasta_into_buf(self, path: str, buf, row: int):
         """Generator: segment one FASTA file (record-joined spans) into the

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+import typing
 
 import numpy as np
 
@@ -48,6 +49,7 @@ def _declare(L: ctypes.CDLL) -> None:
     L.kx_segment_buffer.argtypes = [
         u8p, ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
         ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int64, i64p, i64p, i64p,
+        ctypes.c_int, i64p,
     ]
     L.kx_check_bloom.restype = None
     L.kx_check_bloom.argtypes = [
@@ -82,6 +84,7 @@ def _declare(L: ctypes.CDLL) -> None:
     L.kx_segment_buffer_packed.argtypes = [
         u8p, ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
         ctypes.c_int, ctypes.c_int, u8p, u8p, ctypes.c_int64, i64p, i64p, i64p,
+        ctypes.c_int, i64p,
     ]
 
 
@@ -243,47 +246,54 @@ def encode_bitarrays(
     return enc.finish()
 
 
-def segment_buffer(
-    data: np.ndarray, is_fasta: bool, phase: int, k: int, seg_len: int,
-    out_rows: np.ndarray,
-) -> tuple[int, int, int, int, int]:
-    """Segment complete lines of ``data`` into ``out_rows`` [cap, seg_len]
-    (one 2-bit code per byte, 255 = pad/N).  Returns (rows_written,
-    consumed_bytes, reads, bases, new_phase)."""
-    _require_u8(out_rows, "segment buffer")
-    ph = ctypes.c_int(phase)
-    consumed = np.zeros(1, dtype=np.int64)
-    n_reads = np.zeros(1, dtype=np.int64)
-    n_bases = np.zeros(1, dtype=np.int64)
-    rows = lib().kx_segment_buffer(
-        _ptr(data, ctypes.c_uint8), len(data), int(is_fasta),
-        ctypes.byref(ph), k, seg_len,
-        _ptr(out_rows, ctypes.c_uint8), out_rows.shape[0],
-        _ptr(consumed, ctypes.c_int64), _ptr(n_reads, ctypes.c_int64),
-        _ptr(n_bases, ctypes.c_int64),
-    )
-    return int(rows), int(consumed[0]), int(n_reads[0]), int(n_bases[0]), ph.value
+class Segmented(typing.NamedTuple):
+    """One segmenter call: rows written, bytes consumed (up to a line
+    start), sequence lines (reads) and their bases taken, the FASTQ phase
+    after the last consumed line, and the bases of a fill that ran on more
+    than one thread (0 or ``bases``)."""
+    rows: int
+    consumed: int
+    reads: int
+    bases: int
+    phase: int
+    parallel_bases: int
 
 
-def segment_buffer_packed(
-    data: np.ndarray, is_fasta: bool, phase: int, k: int, seg_len: int,
-    out_packed: np.ndarray, out_mask: np.ndarray,
-) -> tuple[int, int, int, int, int]:
-    """Packed segmenter: out_packed [cap, seg_len/4] 2-bit codes, out_mask
-    [cap, seg_len/8] validity bits — the device transfer format, written
-    directly from ASCII.  Returns (rows, consumed, reads, bases, phase)."""
-    for a in (out_packed, out_mask):
+def segment(data: np.ndarray, is_fasta: bool, phase: int, k: int,
+            seg_len: int, out: np.ndarray, out_mask: np.ndarray | None = None,
+            n_threads: int = 0) -> Segmented:
+    """Segment the complete lines of ``data`` into rows from row 0 of
+    ``out``: [cap, seg_len] codes, one a byte (255 = pad/N), or with
+    ``out_mask`` the packed format, ``out`` [cap, seg_len/4] 2-bit codes and
+    ``out_mask`` [cap, seg_len/8] validity bits, written straight from
+    ASCII.  Stops at the first sequence line whose rows exceed the
+    capacity.  Runs on ``n_threads`` threads (default: ``-t``); the result
+    does not depend on the count."""
+    bufs = (out,) if out_mask is None else (out, out_mask)
+    _require_u8(data, "segment input")
+    for a in bufs:
         _require_u8(a, "segment buffers")
+    widths = ((seg_len,) if out_mask is None
+              else (seg_len // 4, seg_len // 8))
+    shapes = [a.shape for a in bufs]
+    if seg_len < k or (out_mask is not None and seg_len % 8) or any(
+            len(sh) != 2 or sh[1] != w or sh[0] != shapes[0][0]
+            for sh, w in zip(shapes, widths)):
+        raise ValueError(f"segment buffers {shapes} do not hold rows of "
+                         f"seg_len={seg_len} (k={k})")
     ph = ctypes.c_int(phase)
-    consumed = np.zeros(1, dtype=np.int64)
-    n_reads = np.zeros(1, dtype=np.int64)
-    n_bases = np.zeros(1, dtype=np.int64)
-    rows = lib().kx_segment_buffer_packed(
-        _ptr(data, ctypes.c_uint8), len(data), int(is_fasta),
-        ctypes.byref(ph), k, seg_len,
-        _ptr(out_packed, ctypes.c_uint8), _ptr(out_mask, ctypes.c_uint8),
-        out_packed.shape[0],
-        _ptr(consumed, ctypes.c_int64), _ptr(n_reads, ctypes.c_int64),
-        _ptr(n_bases, ctypes.c_int64),
-    )
-    return int(rows), int(consumed[0]), int(n_reads[0]), int(n_bases[0]), ph.value
+    res = np.zeros(4, dtype=np.int64)  # consumed, reads, bases, parallel
+    p = [_ptr(res[i:], ctypes.c_int64) for i in range(4)]
+    head = (_ptr(data, ctypes.c_uint8), len(data), int(is_fasta),
+            ctypes.byref(ph), k, seg_len)
+    tail = (out.shape[0], p[0], p[1], p[2], n_threads or n_threads_default(),
+            p[3])
+    if out_mask is None:
+        rows = lib().kx_segment_buffer(*head, _ptr(out, ctypes.c_uint8),
+                                       *tail)
+    else:
+        rows = lib().kx_segment_buffer_packed(
+            *head, _ptr(out, ctypes.c_uint8), _ptr(out_mask, ctypes.c_uint8),
+            *tail)
+    return Segmented(int(rows), int(res[0]), int(res[1]), int(res[2]),
+                     ph.value, int(res[3]))

@@ -684,86 +684,358 @@ void kx_unpack_counts(const uint8_t* bytes, int64_t nbytes, int64_t n,
 }
 
 extern "C++" {  // the templated segmenter core has C++ linkage
+#if defined(__SSE2__)
+#include <emmintrin.h>
+#endif
 namespace {
 
-inline const uint8_t* base_lut() {
-  static uint8_t lut[256];
-  static bool lut_init = false;
-  if (!lut_init) {
-    memset(lut, 255, 256);
-    lut['A'] = lut['a'] = 0;
-    lut['C'] = lut['c'] = 1;
-    lut['G'] = lut['g'] = 2;
-    lut['T'] = lut['t'] = 3;
-    lut_init = true;
+// ASCII -> 2-bit code (A=0 C=1 G=2 T=3, either case), 255 for any other
+// byte; `enc` holds the code in bits 0-1 (0 where invalid) and validity in
+// bit 2, so a packed byte and a mask byte are ORs of shifted lookups.
+struct BaseLuts {
+  uint8_t code[256];
+  uint8_t enc[256];
+  BaseLuts() {
+    memset(code, 255, 256);
+    memset(enc, 0, 256);
+    const char* up = "ACGT";
+    const char* lo = "acgt";
+    for (int c = 0; c < 4; c++) {
+      code[(uint8_t)up[c]] = code[(uint8_t)lo[c]] = (uint8_t)c;
+      enc[(uint8_t)up[c]] = enc[(uint8_t)lo[c]] = (uint8_t)(4 | c);
+    }
   }
-  return lut;
+};
+static const BaseLuts kBaseLuts;
+
+// Below this many bytes a slice is not worth a thread of its own: a window
+// of fewer than 2 x 32 KiB (about 280 FASTQ records of 101 bp, 1,100
+// lines) is segmented by the calling thread alone, through the same code.
+constexpr int64_t kMinSliceBytes = 1 << 15;
+// Slices a round for each thread, taken in turn: a thread slowed by a
+// neighbour on its core holds up a pass by a quarter of its share.
+constexpr int64_t kSlicesPerThread = 4;
+
+// A run of complete lines [lo, hi) of the window (hi follows a '\n'): the
+// line index of pass 1, and per line-index residue r (the FASTQ phase)
+// the sequence lines' reads, bases and rows if lines i = r (mod 4) are the
+// sequence lines.  FASTA sequence lines are known by content and count in
+// every residue.  The prefix sets the slice's first phase and first row,
+// and how many of its lines the call consumes.
+struct SegSlice {
+  int64_t lo, hi;
+  std::vector<int64_t> nl;  // position of each line's '\n'
+  int64_t reads[4], bases[4], rows[4];
+  int phase;
+  int64_t row0, n_lines;
+};
+
+// First line start at or after p, not beyond hi (hi is a line start).
+inline int64_t line_start_at(const uint8_t* buf, int64_t p, int64_t hi) {
+  if (p <= 0) return 0;
+  if (p >= hi) return hi;
+  if (buf[p - 1] == '\n') return p;
+  const void* nl = memchr(buf + p, '\n', hi - p);
+  return nl ? (const uint8_t*)nl - buf + 1 : hi;
+}
+
+// Line i of a slice as [start, end), the '\n' and a '\r' before it cut off.
+inline void line_bounds(const uint8_t* buf, const SegSlice& s, int64_t i,
+                        int64_t* start, int64_t* end) {
+  *start = i ? s.nl[i - 1] + 1 : s.lo;
+  int64_t e = s.nl[i];
+  if (e > *start && buf[e - 1] == '\r') e--;  // CRLF
+  *end = e;
+}
+
+inline bool fasta_seq(const uint8_t* buf, int64_t start, int64_t end) {
+  return end == start || buf[start] != '>';
+}
+
+// Segments of a line of L bases: none under k, one up to seg_len.
+inline int64_t n_segments(int64_t L, int k, int seg_len, int64_t stride) {
+  return L < k ? 0 : L <= seg_len ? 1 : (L - k) / stride + 1;
+}
+
+// The positions of the '\n' bytes of buf[lo, hi), in order.
+inline void find_newlines(const uint8_t* buf, int64_t lo, int64_t hi,
+                          std::vector<int64_t>& nl) {
+  int64_t i = lo;
+#if defined(__SSE2__)
+  const __m128i eol = _mm_set1_epi8('\n');
+  for (; i + 16 <= hi; i += 16) {
+    unsigned m = (unsigned)_mm_movemask_epi8(_mm_cmpeq_epi8(
+        _mm_loadu_si128((const __m128i*)(buf + i)), eol));
+    for (; m; m &= m - 1) nl.push_back(i + __builtin_ctz(m));
+  }
+#endif
+  for (; i < hi; i++)
+    if (buf[i] == '\n') nl.push_back(i);
+}
+
+// Pass 1 over one slice: find its newlines, sum its lines per residue.
+void index_slice(const uint8_t* buf, SegSlice& s, int is_fasta, int k,
+                 int seg_len, int64_t stride) {
+  s.nl.clear();
+  find_newlines(buf, s.lo, s.hi, s.nl);
+  for (int r = 0; r < 4; r++) s.reads[r] = s.bases[r] = s.rows[r] = 0;
+  const int64_t n = (int64_t)s.nl.size();
+  for (int64_t i = 0; i < n; i++) {
+    int64_t start, end;
+    line_bounds(buf, s, i, &start, &end);
+    const int64_t L = end - start;
+    const int64_t nseg = n_segments(L, k, seg_len, stride);
+    if (!is_fasta) {
+      s.reads[i & 3]++;
+      s.bases[i & 3] += L;
+      s.rows[i & 3] += nseg;
+    } else if (fasta_seq(buf, start, end)) {
+      for (int q = 0; q < 4; q++) {
+        s.reads[q]++;
+        s.bases[q] += L;
+        s.rows[q] += nseg;
+      }
+    }
+  }
+}
+
+// The residue of a slice's sequence lines when its first line has `phase`.
+inline int seq_residue(int phase) { return (1 - phase) & 3; }
+
+// The serial rule inside the slice where the rows run out: walk its lines
+// from `rows`, stop at the first sequence line whose segments do not fit.
+// Returns the lines consumed; adds the reads, bases and rows before it.
+int64_t cut_slice(const uint8_t* buf, const SegSlice& s, int is_fasta,
+                  int k, int seg_len, int64_t stride, int64_t cap,
+                  int64_t* rows,
+                  int64_t* reads, int64_t* bases) {
+  const int64_t n = (int64_t)s.nl.size();
+  for (int64_t i = 0; i < n; i++) {
+    int64_t start, end;
+    line_bounds(buf, s, i, &start, &end);
+    bool is_seq = is_fasta ? fasta_seq(buf, start, end)
+                           : ((s.phase + i) & 3) == 1;
+    if (!is_seq) continue;
+    const int64_t L = end - start;
+    const int64_t nseg = n_segments(L, k, seg_len, stride);
+    if (*rows + nseg > cap) return i;
+    (*reads)++;
+    *bases += L;
+    *rows += nseg;
+  }
+  return n;
+}
+
+#if defined(__SSE2__)
+// Bits 0-15 of a and of b interleaved: a's bit j to bit 2j, b's to 2j+1.
+inline uint32_t interleave16(uint32_t a, uint32_t b) {
+  uint32_t x[2] = {a, b};
+  for (uint32_t& v : x) {
+    v = (v | (v << 8)) & 0x00FF00FFu;
+    v = (v | (v << 4)) & 0x0F0F0F0Fu;
+    v = (v | (v << 2)) & 0x33333333u;
+    v = (v | (v << 1)) & 0x55555555u;
+  }
+  return x[0] | x[1] << 1;
+}
+
+// 16 bases: 4 packed bytes and 2 mask bytes.  For A C G T (either case)
+// code bit 1 is ASCII bit 2 and code bit 0 is ASCII bit 1 ^ bit 2; the
+// 16-bit lane shifts only move a byte's own bits into its bit 7.
+inline void pack16(const uint8_t* src, uint8_t* dp, uint8_t* dm) {
+  const __m128i x = _mm_loadu_si128((const __m128i*)src);
+  const __m128i lc = _mm_or_si128(x, _mm_set1_epi8(0x20));
+  const __m128i ok = _mm_or_si128(
+      _mm_or_si128(_mm_cmpeq_epi8(lc, _mm_set1_epi8('a')),
+                   _mm_cmpeq_epi8(lc, _mm_set1_epi8('c'))),
+      _mm_or_si128(_mm_cmpeq_epi8(lc, _mm_set1_epi8('g')),
+                   _mm_cmpeq_epi8(lc, _mm_set1_epi8('t'))));
+  const uint32_t valid = (uint32_t)_mm_movemask_epi8(ok);
+  const uint32_t b1 = (uint32_t)_mm_movemask_epi8(_mm_slli_epi16(x, 5));
+  const uint32_t b0 = (uint32_t)_mm_movemask_epi8(
+      _mm_slli_epi16(_mm_xor_si128(x, _mm_srli_epi16(x, 1)), 6));
+  const uint32_t p = interleave16(b0 & valid, b1 & valid);
+  memcpy(dp, &p, 4);  // little-endian: bases 0-3 in byte 0
+  dm[0] = (uint8_t)valid;
+  dm[1] = (uint8_t)(valid >> 8);
+}
+#endif
+
+// One row from src[0, m), m <= seg_len: each output byte written once.
+template <bool kPacked>
+inline void write_row(const uint8_t* src, int64_t m, int seg_len,
+                      uint8_t* dp, uint8_t* dm) {
+  if (!kPacked) {
+    const uint8_t* code = kBaseLuts.code;
+    for (int64_t j = 0; j < m; j++) dp[j] = code[src[j]];
+    if (m < seg_len) memset(dp + m, 255, seg_len - m);
+    return;
+  }
+  // packed: 2-bit codes little-endian within a byte, validity bits
+  int64_t g = 0;  // groups of 8 bases written
+#if defined(__SSE2__)
+  for (; 8 * g + 16 <= m; g += 2) pack16(src + 8 * g, dp + 2 * g, dm + g);
+#endif
+  const uint8_t* enc = kBaseLuts.enc;
+  const int64_t full = m >> 3;
+  uint32_t e[8];
+  for (; g <= full; g++) {
+    const uint8_t* s = src + 8 * g;
+    if (g < full) {
+      for (int j = 0; j < 8; j++) e[j] = enc[s[j]];
+    } else {
+      const int rem = (int)(m & 7);
+      if (!rem) break;
+      for (int j = 0; j < 8; j++) e[j] = j < rem ? enc[s[j]] : 0;
+    }
+    dp[2 * g] = (uint8_t)((e[0] & 3) | (e[1] & 3) << 2 | (e[2] & 3) << 4 |
+                          (e[3] & 3) << 6);
+    dp[2 * g + 1] = (uint8_t)((e[4] & 3) | (e[5] & 3) << 2 |
+                              (e[6] & 3) << 4 | (e[7] & 3) << 6);
+    dm[g] = (uint8_t)((e[0] >> 2) | (e[1] >> 2) << 1 | (e[2] >> 2) << 2 |
+                      (e[3] >> 2) << 3 | (e[4] >> 2) << 4 |
+                      (e[5] >> 2) << 5 | (e[6] >> 2) << 6 |
+                      (e[7] >> 2) << 7);
+  }
+  const int64_t pbytes = seg_len >> 2, mbytes = seg_len >> 3;
+  if (2 * g < pbytes) memset(dp + 2 * g, 0, pbytes - 2 * g);
+  if (g < mbytes) memset(dm + g, 0, mbytes - g);
+}
+
+// Pass 2 over one slice: its consumed sequence lines into rows from row0.
+template <bool kPacked>
+void fill_slice(const uint8_t* buf, const SegSlice& s, int is_fasta, int k,
+                int seg_len, int64_t stride, uint8_t* out,
+                uint8_t* out_mask) {
+  const int64_t pbytes = kPacked ? seg_len >> 2 : seg_len;
+  const int64_t mbytes = seg_len >> 3;
+  int64_t row = s.row0;
+  const int64_t first = is_fasta ? 0 : seq_residue(s.phase);
+  const int64_t step = is_fasta ? 1 : 4;
+  for (int64_t i = first; i < s.n_lines; i += step) {
+    int64_t start, end;
+    line_bounds(buf, s, i, &start, &end);
+    if (is_fasta && !fasta_seq(buf, start, end)) continue;
+    const int64_t L = end - start;
+    const int64_t nseg = n_segments(L, k, seg_len, stride);
+    for (int64_t g = 0; g < nseg; g++, row++) {
+      const int64_t avail = L - g * stride;
+      write_row<kPacked>(buf + start + g * stride,
+                         avail < seg_len ? avail : seg_len, seg_len,
+                         out + row * pbytes,
+                         kPacked ? out_mask + row * mbytes : nullptr);
+    }
+  }
 }
 
 // Shared segmenter core.  Packed=false writes [rows, seg_len] byte codes
 // (255 = invalid); packed=true writes [rows, seg_len/4] 2-bit codes
 // (little-endian within byte) + [rows, seg_len/8] validity bits — the
 // device-transfer format (count/extract.extract_canonical_packed), emitted
-// directly from ASCII in one pass.
+// directly from ASCII.
+//
+// The result is the serial line loop's, for any thread count: lines are
+// taken in order, every sequence line adds a read and its bases, and the
+// call stops at the first sequence line whose segments exceed the rows
+// left (or at the incomplete last line).  It runs in two passes over
+// slices of the window cut at line starts.  Pass 1 indexes the slices'
+// lines in parallel; a serial prefix over the slices gives each its FASTQ
+// phase and first row and finds the slice where the rows run out, which
+// is walked line by line.  Pass 1 runs in rounds sized from the rows still
+// wanted and the bytes per row seen so far, so a call reads about what its
+// rows need, not the whole window.  Pass 2 fills the slices' rows in
+// parallel.  *parallel_bases gets the bases of a fill that ran on more
+// than one thread.
 template <bool kPacked>
 int64_t segment_core(const uint8_t* buf, int64_t len, int is_fasta,
                      int* fastq_phase, int k, int seg_len, uint8_t* out,
                      uint8_t* out_mask, int64_t out_cap_rows,
-                     int64_t* consumed, int64_t* n_reads, int64_t* n_bases) {
-  const uint8_t* lut = base_lut();
+                     int64_t* consumed, int64_t* n_reads, int64_t* n_bases,
+                     int n_threads, int64_t* parallel_bases) {
   const int64_t stride = seg_len - (k - 1);
-  const int64_t pbytes = seg_len >> 2, mbytes = seg_len >> 3;
-  int64_t rows = 0, reads = 0, bases = 0;
-  int64_t pos = 0;
+  const int64_t T = n_threads > 1 ? n_threads : 1;
+  const uint8_t* last = len > 0 ? (const uint8_t*)memrchr(buf, '\n', len)
+                                : nullptr;
+  const int64_t end = last ? last - buf + 1 : 0;  // complete lines only
+  // the calling thread's slices, reused across calls; the parallel loops
+  // reach them through `sl` (a thread_local name would give each thread
+  // its own)
+  thread_local std::vector<SegSlice> slices_of_thread;
+  std::vector<SegSlice>& sl = slices_of_thread;
+  size_t ns = 0;
   int phase = *fastq_phase;
-  while (pos < len) {
-    const uint8_t* nl = (const uint8_t*)memchr(buf + pos, '\n', len - pos);
-    if (!nl) break;  // incomplete line -> caller carries it over
-    int64_t start = pos, end = nl - buf;
-    pos = end + 1;
-    if (end > start && buf[end - 1] == '\r') end--;  // CRLF
-    bool is_seq = is_fasta ? (end == start || buf[start] != '>')
-                           : (phase == 1);
-    phase = (phase + 1) & 3;
-    if (!is_seq) continue;
-    int64_t L = end - start;
-    int64_t nseg = L >= k ? (L - k) / stride + 1 : 0;
-    if (rows + nseg > out_cap_rows) {  // rewind this line; resume later
-      pos = start;
-      phase = (phase + 3) & 3;
-      break;
+  int64_t rows = 0, reads = 0, bases = 0, scan = 0;
+  bool full = false;
+  while (scan < end && !full) {
+    int64_t want;
+    if (rows > 0)  // the bytes per row seen so far, 1/32 more
+      want = (out_cap_rows - rows + 1) * scan / rows * 33 / 32;
+    else if (scan > 0)
+      want = 2 * scan;
+    else  // first round: a FASTQ row takes over twice its bases
+      want = (out_cap_rows + 1) * seg_len * 5 / 4;
+    want = want > kMinSliceBytes ? want : kMinSliceBytes;
+    const int64_t hi = want >= end - scan
+                           ? end
+                           : line_start_at(buf, scan + want, end);
+    int64_t t = (hi - scan) / kMinSliceBytes;
+    t = t < 1 ? 1 : (t > T * kSlicesPerThread ? T * kSlicesPerThread : t);
+    const size_t ns0 = ns;
+    int64_t lo = scan;
+    for (int64_t j = 1; j <= t; j++) {
+      const int64_t b =
+          j == t ? hi : line_start_at(buf, scan + (hi - scan) * j / t, hi);
+      if (b <= lo) continue;
+      if (sl.size() <= ns) sl.emplace_back();
+      sl[ns].lo = lo;
+      sl[ns].hi = b;
+      ns++;
+      lo = b;
     }
-    reads++;
-    bases += L;
-    if (L < k) continue;
-    for (int64_t s = 0; s < nseg; s++) {
-      const uint8_t* src = buf + start + s * stride;
-      int64_t avail = L - s * stride;
-      int64_t m = avail < seg_len ? avail : seg_len;
-      if (kPacked) {
-        uint8_t* dp = out + (rows + s) * pbytes;
-        uint8_t* dm = out_mask + (rows + s) * mbytes;
-        memset(dp, 0, pbytes);
-        memset(dm, 0, mbytes);
-        for (int64_t j = 0; j < m; j++) {
-          uint8_t c = lut[src[j]];
-          if (c < 4) {
-            dp[j >> 2] |= (uint8_t)(c << (2 * (j & 3)));
-            dm[j >> 3] |= (uint8_t)(1u << (j & 7));
-          }
-        }
-      } else {
-        uint8_t* dst = out + (rows + s) * seg_len;
-        for (int64_t j = 0; j < m; j++) dst[j] = lut[src[j]];
-        if (m < seg_len) memset(dst + m, 255, seg_len - m);
+    const int64_t n_new = (int64_t)(ns - ns0);
+    const int64_t ti = n_new < T ? n_new : T;
+#ifdef _OPENMP
+#pragma omp parallel for num_threads(ti) schedule(dynamic, 1) if (ti > 1)
+#endif
+    for (int64_t j = 0; j < n_new; j++)
+      index_slice(buf, sl[ns0 + j], is_fasta, k, seg_len, stride);
+    for (size_t j = ns0; j < ns; j++) {
+      SegSlice& s = sl[j];
+      s.phase = phase;
+      s.row0 = rows;
+      const int r = seq_residue(phase);
+      if (rows + s.rows[r] > out_cap_rows) {
+        s.n_lines = cut_slice(buf, s, is_fasta, k, seg_len, stride,
+                              out_cap_rows, &rows, &reads, &bases);
+        phase = (int)((phase + s.n_lines) & 3);
+        ns = j + 1;
+        full = true;
+        break;
       }
+      s.n_lines = (int64_t)s.nl.size();
+      rows += s.rows[r];
+      reads += s.reads[r];
+      bases += s.bases[r];
+      phase = (int)((phase + s.n_lines) & 3);
     }
-    rows += nseg;
+    scan = hi;
+  }
+  const int64_t tf = (int64_t)ns < T ? ((int64_t)ns > 1 ? (int64_t)ns : 1) : T;
+#ifdef _OPENMP
+#pragma omp parallel for num_threads(tf) schedule(dynamic, 1) if (tf > 1)
+#endif
+  for (int64_t j = 0; j < (int64_t)ns; j++)
+    fill_slice<kPacked>(buf, sl[j], is_fasta, k, seg_len, stride, out,
+                        out_mask);
+  if (full) {
+    const SegSlice& s = sl[ns - 1];
+    scan = s.n_lines ? s.nl[s.n_lines - 1] + 1 : s.lo;
   }
   *fastq_phase = phase;
-  *consumed = pos;
+  *consumed = scan;
   *n_reads = reads;
   *n_bases = bases;
+  *parallel_bases = tf > 1 ? bases : 0;
   return rows;
 }
 
@@ -777,14 +1049,17 @@ int64_t segment_core(const uint8_t* buf, int64_t len, int is_fasta,
 // with 255).  Resumable: stops at line granularity when out is full.
 //   fastq_phase: in/out, line index mod 4 across chunks.
 //   consumed: out, bytes of buf processed (always ends on a line boundary).
+//   n_threads: threads of the two passes (the same result for any count).
+//   parallel_bases: out, n_bases if the fill ran on more than one thread.
 // Returns rows written.
 int64_t kx_segment_buffer(const uint8_t* buf, int64_t len, int is_fasta,
                           int* fastq_phase, int k, int seg_len, uint8_t* out,
                           int64_t out_cap_rows, int64_t* consumed,
-                          int64_t* n_reads, int64_t* n_bases) {
+                          int64_t* n_reads, int64_t* n_bases, int n_threads,
+                          int64_t* parallel_bases) {
   return segment_core<false>(buf, len, is_fasta, fastq_phase, k, seg_len,
                              out, nullptr, out_cap_rows, consumed, n_reads,
-                             n_bases);
+                             n_bases, n_threads, parallel_bases);
 }
 
 // Packed variant: seg_len must be a multiple of 8.
@@ -793,10 +1068,11 @@ int64_t kx_segment_buffer_packed(const uint8_t* buf, int64_t len,
                                  int seg_len, uint8_t* out_packed,
                                  uint8_t* out_mask, int64_t out_cap_rows,
                                  int64_t* consumed, int64_t* n_reads,
-                                 int64_t* n_bases) {
+                                 int64_t* n_bases, int n_threads,
+                                 int64_t* parallel_bases) {
   return segment_core<true>(buf, len, is_fasta, fastq_phase, k, seg_len,
                             out_packed, out_mask, out_cap_rows, consumed,
-                            n_reads, n_bases);
+                            n_reads, n_bases, n_threads, parallel_bases);
 }
 
 }  // extern "C"

@@ -106,6 +106,42 @@ def test_cli_kill_and_resume_byte_identical(tmp_path, env, capsys):
     _same_files(_model_files(str(wd0), db0), _model_files(str(wd2), db2))
 
 
+def test_resume_on_four_threads_equals_one_thread_build(tmp_path, env):
+    """A run at -t1 killed after 3 batches and resumed at -t4 writes the
+    files of an uninterrupted -t1 run: batching does not depend on the
+    segmenter's thread count, and the resumed parse ran on several."""
+    from kmcex_tpu_torch import native
+
+    fq = tmp_path / "reads.fastq"
+    _write_fastq(fq, n_reads=6000, seed=17)
+    env.setenv("KMCEX_BATCH_SEGS", "1024")
+    wd0, wd1 = tmp_path / "wd0", tmp_path / "wd1"
+    wd0.mkdir()
+    wd1.mkdir()
+    db0, db1 = str(tmp_path / "db0"), str(tmp_path / "db1")
+    ck = str(tmp_path / "ck")
+    argv = ["kmcex", "-k19", f"-ckpt{ck}", str(fq), db1, str(wd1)]
+    prev = native._n_threads_override
+    try:
+        assert torch_cli.main(["kmcex", "-k19", "-t1", str(fq), db0,
+                               str(wd0)], device="cpu") == 0
+        env.setenv("KMCEX_CRASH_AFTER_BATCHES", "3")
+        with pytest.raises(RuntimeError, match="injected crash"):
+            torch_cli.main(argv[:2] + ["-t1"] + argv[2:], device="cpu")
+        assert TorchAcc.read_manifest(ck)["extra"]["n_batches"] == 3
+        env.delenv("KMCEX_CRASH_AFTER_BATCHES")
+        stats_json = tmp_path / "stats.json"
+        env.setenv("KMCEX_STATS_JSON", str(stats_json))
+        assert torch_cli.main(argv[:2] + ["-t4"] + argv[2:],
+                              device="cpu") == 0
+    finally:
+        native.set_num_threads(prev)
+    stats = json.load(open(stats_json))
+    assert stats["skipped_batches"] == 3
+    assert stats["counters"]["ingest.parallel_bases"] > 0
+    _same_files(_model_files(str(wd0), db0), _model_files(str(wd1), db1))
+
+
 def test_ckpt_fingerprint_mismatch_raises(tmp_path, env):
     fq = tmp_path / "r.fastq"
     _write_fastq(fq, n_reads=1200)

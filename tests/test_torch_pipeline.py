@@ -116,7 +116,7 @@ for name in ("core.murmur", "model.device_bloom", "query.device_model",
 assert kmcex_tpu_torch.DeviceKModel and kmcex_tpu_torch.load_model
 from kmcex_tpu_torch.io.kmc_db import KMCReader, write_kmc1, write_kmc2
 from kmcex_tpu_torch.count.pipeline import count_fastq, count_encode, run
-from kmcex_tpu_torch.native import merge_runs, murmur64, segment_buffer
+from kmcex_tpu_torch.native import merge_runs, murmur64, segment
 from kmcex_tpu_torch.native import encode_bitarrays
 from kmcex_tpu_torch.parallel.serve import make_server
 from kmcex_tpu_torch.parallel.distributed import distributed_count_fastq
