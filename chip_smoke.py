@@ -22,7 +22,12 @@ Phases, one line each (any failure exits non-zero):
      beside its bound: the bytes it must move at the card's 3.35 TB/s or
      its operations at 67 T/s, whichever takes longer; and each kernel's
      main shape (every compaction shape) beside a plain device copy of the
-     same bytes, the rate such a kernel can reach in practice;
+     same bytes, the rate such a kernel can reach in practice; the
+     coupled-array encode (``encode_arrays``) on tables of the benchmark's
+     two sizes (3,000,000 and 10,500,000 array-bound pairs, the model's
+     arrays, ``BUCKET_SIZE`` buckets) against the native host encoder, the
+     arrays, km_back and the rest pairs exact, beside the native encoder's
+     host time and, at the smaller size, the plain version's on the card;
   4. the port's CLI build on the realistic-spectrum workload (the seeded
      generator of bench.py: 2M-base genome, 533,000 x 150 bp reads, 0.5%
      errors; k=31 ci=1 cs=1023 nh=7 nb=5), the Bloom bank built on the
@@ -37,9 +42,10 @@ Phases, one line each (any failure exits non-zero):
      in one call and in two, against the host insert, 0 differing bytes;
      CUDA-event times of the feed and of the byte pack;
   7. the model-only path, ``count_encode(..., db_path=None)``: the model
-     equal to phase 4's byte for byte, one more compaction launch (the
-     low-key drop), and the table bytes that crossed to the host with and
-     without the drop;
+     equal to phase 4's byte for byte, as many compaction launches (the
+     low-key drop there, the encoder's pairs in phase 4), one device
+     encode in each, and the table bytes that crossed to the host with and
+     without the drop (none with it);
   8. serving: ``load_model`` on phase 4's model, ``DeviceKModel`` on the
      card, bench.py's query mix (1,000,000 queries, half counted k-mers,
      half random): the device answers equal the host's on every query,
@@ -451,7 +457,94 @@ def phase_kernels(dev):
                                          f"bound_ms{sfx}": bnd["bound_ms"]})
         del keys, holes, cnt, gk, gc, wk, wc
         torch.cuda.empty_cache()
+    out["encode_arrays"] = phase_encode(dev, rng)
     return out
+
+
+ENCODE_SIZES = (3_000_000, 10_500_000)  # array-bound pairs: SA, HC14 share
+
+
+def phase_encode(dev, rng) -> dict:
+    """``encode_arrays`` on tables of the benchmark's two sizes: ascending
+    distinct keys, counts from 2 on (a few past the OccuBin LUT), the
+    model's array sizes and buckets.  Exact against the native encoder;
+    CUDA-event median of 5 beside the native encoder's host time (-t of the
+    process) and, at the smaller size, one pass of the plain version on the
+    card.  Bound: the pairs in, the arrays and km_back out, the rest pairs
+    out, at the memory rate."""
+    import torch
+
+    from kmcex_tpu_torch import native
+    from kmcex_tpu_torch.core.occu_bin import OccuBin
+    from kmcex_tpu_torch.model import device_encode, kmodel
+
+    row = {}
+    for n in ENCODE_SIZES:
+        keys = np.unique(rng.integers(0, 1 << 62, n + n // 50,
+                                      dtype=np.uint64))[:n]
+        occs = (1 + rng.geometric(0.05, n)).astype(np.uint32)
+        occs[rng.random(n) < 0.01] = 5000
+        kb, bb = kmodel.km_sizes(n, NH)
+        plan = device_encode.EncodePlan(
+            K, NB, NH, NH - 2, kb, bb, OccuBin(CS + 1, NH).occ2bin_lut,
+            kmodel.BUCKET_SIZE, device_encode.default_batch(NH, 8 * kb))
+        want = [np.zeros(NB * kb, np.uint8), np.zeros(NB * kb, np.uint8),
+                np.zeros(bb, np.uint8)]
+        t = time.time()
+        enc = native.BitArrayEncoder(K, NB, NH, plan.occ2bin, want[0],
+                                     want[1], 8 * kb, want[2], 8 * bb,
+                                     NH - 2)
+        enc.feed(keys, occs)
+        rk, ro = enc.finish()
+        native_ms = (time.time() - t) * 1e3
+        kt = torch.from_numpy(keys.view(np.int64)).to(dev)
+        ot = torch.from_numpy(occs.view(np.int32)).to(dev)
+        got, ms = timed(lambda: device_encode.encode_arrays(kt, ot, plan))
+        rest_n, attempts, serial = (int(x) for x in got.stats.cpu())
+        bad = sum(int((g.cpu().numpy() != w).sum())
+                  for g, w in zip(got[:3], want))
+        if rest_n != len(rk):
+            bad += 1
+        else:
+            bad += int((got.rest_keys[:rest_n].cpu().numpy().view(np.uint64)
+                        != rk).sum())
+            bad += int((got.rest_occs[:rest_n].cpu().numpy().view(np.uint32)
+                        != ro).sum())
+        if bad:
+            raise AssertionError(f"encode_arrays n={n}: {bad} bytes or rest "
+                                 f"pairs differ from the native encoder")
+        plain_ms = None
+        if n == ENCODE_SIZES[0]:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            plain = device_encode.encode_arrays_plain(kt, ot, plan)
+            t1.record()
+            torch.cuda.synchronize()
+            plain_ms = t0.elapsed_time(t1)
+            if [int(x) for x in plain.stats] != [rest_n, attempts, serial]:
+                raise AssertionError(f"encode_arrays n={n}: plain stats "
+                                     f"{plain.stats.tolist()}")
+            del plain
+        bnd = bound(12 * n + 2 * NB * kb + bb + 12 * rest_n, attempts)
+        print(f"[kernels] encode_arrays n={n} ({NB} arrays of {8 * kb} bits, "
+              f"batch {plan.batch}): kernel {ms:.3f} ms, native host encoder "
+              f"{native_ms:.1f} ms, plain "
+              + ("not run" if plain_ms is None else f"{plain_ms:.1f} ms")
+              + f", bound {bnd['bound_ms']:.3f} ms ({bnd['bound_ms'] / ms:.2%}"
+              f" of it); {attempts} attempts, {serial} decided one by one "
+              f"({100 * serial / max(attempts, 1):.3f}%), {rest_n} rest "
+              f"pairs; exact (0 bytes differ)")
+        sfx = "" if n == ENCODE_SIZES[0] else f"_n{n}"
+        row.update({f"ms{sfx}": ms, f"native_ms{sfx}": native_ms,
+                    f"bound_ms{sfx}": bnd["bound_ms"],
+                    f"serial_share{sfx}": serial / max(attempts, 1)})
+        if plain_ms is not None:
+            row.update(mismatches=bad, plain_ms=plain_ms, n=n,
+                       library_ms=None, bound_by=bnd["bound_by"])
+        del kt, ot, got
+        torch.cuda.empty_cache()
+    return row
 
 
 def cli_build(fq: pathlib.Path, wd: pathlib.Path, extra_env=None):
@@ -604,10 +697,12 @@ def phase_model_only(work: pathlib.Path, fq: pathlib.Path, cli_dir, st_cli,
     km.save(work / "model_only" / "o.res")
     same_files("model-only", work / "model_only", cli_dir,
                ["o.res/header", "o.res/km.bin", "o.res/rest.bin"])
-    if launches["sort_u64"] < 1 or launches["compact_pairs"] != compact_cli + 1:
+    if (launches["sort_u64"] < 1 or launches["compact_pairs"] != compact_cli
+            or launches["encode_arrays"] != 1):
         raise AssertionError(
             f"model-only run launched {launches}; the CLI run launched "
-            f"compact_pairs {compact_cli} times and the drop adds one")
+            f"compact_pairs {compact_cli} times (its drop makes the "
+            f"encoder's pairs), and each encodes on the card once")
     if "encode.bloom_insert" in st.phases or "finalize.drop_low" not in st.phases:
         raise AssertionError(f"model-only phases: {sorted(st.phases)}")
     print(f"[model-only] header, km.bin, rest.bin equal the CLI run's; "
@@ -728,8 +823,12 @@ def phase_spill(work: pathlib.Path, fq: pathlib.Path, cli_dir, peak4_mb):
                     or (ev["disk_spills"] > 0) != want_disk):
                 raise AssertionError(f"spill/{name}: distinct {distinct}, "
                                      f"tier events {ev}")
-            if not all(v > 0 for v in launches[name].values()):
-                raise AssertionError(f"spill/{name} skipped a kernel: "
+            if (not all(v > 0 for k_, v in launches[name].items()
+                        if k_ != "encode_arrays")
+                    or launches[name]["encode_arrays"]):
+                raise AssertionError(f"spill/{name} skipped a count kernel "
+                                     f"or encoded on the card (the host "
+                                     f"route encodes natively): "
                                      f"{launches[name]}")
             if "encode.bloom_insert" not in st["phases"]:
                 raise AssertionError(f"spill/{name}: the host did not insert "
@@ -962,9 +1061,11 @@ def phase_sharded_build(dev, work: pathlib.Path, fq: pathlib.Path, cli_dir,
                     raise AssertionError(
                         f"sharded/forced: host Bloom insert {host_insert}, "
                         f"tier events {ev}")
-                need = tuple(launches[name])
-            if not all(launches[name][k_] >= N_SHARDS for k_ in need):
-                raise AssertionError(f"sharded/{name} skipped a kernel: "
+                need = ("sort_u64", "merge_sorted_u64", "compact_pairs")
+            if (not all(launches[name][k_] >= N_SHARDS for k_ in need)
+                    or launches[name]["encode_arrays"]):
+                raise AssertionError(f"sharded/{name} skipped a kernel or "
+                                     f"encoded on the card: "
                                      f"{launches[name]}")
             left = sorted(p_.name for p_ in lsm_tmp.iterdir())
             if left:
@@ -1249,7 +1350,8 @@ def main() -> int:
         if distinct != REALISTIC_DISTINCT:
             raise AssertionError(f"realistic: {distinct} distinct k-mers, "
                                  f"expected {REALISTIC_DISTINCT}")
-        if not (l4["sort_u64"] > 0 and l4["compact_pairs"] > 0):
+        if not (l4["sort_u64"] > 0 and l4["compact_pairs"] > 0
+                and l4["encode_arrays"] == 1):
             raise AssertionError(f"realistic run skipped a kernel: {l4}")
         secs = st["count_seconds"] + st["encode_seconds"]
         print(f"[realistic] reads {st['reads']}, distinct {distinct}, count "
@@ -1326,7 +1428,8 @@ def main() -> int:
                                 "kmcex_tpu/count/sort_pallas.py:434",
                                 ["kmcex_tpu/count/sort_pallas.py:266"]),
            "compact_pairs": ("kmcex_tpu_torch/csrc/compact.cu",
-                             "kmcex_tpu/count/compact_pallas.py:157", [])}
+                             "kmcex_tpu/count/compact_pallas.py:157", []),
+           "encode_arrays": ("kmcex_tpu_torch/csrc/encode.cu", None, [])}
     rows = []
     for name, (path, repl, also) in src.items():
         rows.append({"name": name, "route": "cuda", "source": path,

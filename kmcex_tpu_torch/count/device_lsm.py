@@ -22,7 +22,10 @@ subset, in PyTorch:
     table behind those copies (``model.device_bloom``); with ``drop_low``
     the keys that only feed the Bloom bank are masked out and the table is
     recompacted (``compact_pairs``) before it streams, so they never cross
-    to the host.
+    to the host.  With an ``encoder_factory`` beside the Bloom build, the
+    array-bound pairs are dropped out on the device for the coupled-array
+    encode there (``model.device_encode``); with ``drop_low`` too, the
+    table does not stream at all.
   * **Host level** — a run that reaches ``spill_threshold`` entries leaves
     the device: one synchronous copy to host RAM, pads dropped, then a
     size-tiered cascade of two-pointer merges (``native.merge_runs``).  The
@@ -149,14 +152,19 @@ def _fused_finalize(kmers_list, ci: int, cs: int):
     return u, c, _final_stats(u, c, ci)
 
 
-def _drop_compact(u, c, thresh: int):
-    """The low-key drop of the model-only path: mask the pairs with count <
-    ``thresh`` (= ci + bf_num: the Bloom-bound and sub-ci keys) to
-    (SENTINEL, 0), recompact with the compaction kernel, and take the
-    dropped table's own stats.  Returns (u2, c2, stats2)."""
+def _drop_low(u, c, thresh: int):
+    """The low-key drop: mask the pairs with count < ``thresh`` (= ci +
+    bf_num: the Bloom-bound and sub-ci keys) to (SENTINEL, 0) and recompact
+    with the compaction kernel into new buffers.  Returns (u2, c2)."""
     keep = u32(c) >= thresh
-    u2, c2 = compact_pairs(torch.where(keep, u, SENTINEL),
-                           torch.where(keep, c, 0))
+    return compact_pairs(torch.where(keep, u, SENTINEL),
+                         torch.where(keep, c, 0))
+
+
+def _drop_compact(u, c, thresh: int):
+    """The low-key drop of the model-only path with the dropped table's own
+    stats.  Returns (u2, c2, stats2)."""
+    u2, c2 = _drop_low(u, c, thresh)
     return u2, c2, _final_stats(u2, c2, thresh)
 
 
@@ -349,7 +357,7 @@ class DeviceCountAccumulator:
                             "host_merge_seconds": 0.0,
                             "merge_pass_seconds": 0.0}
         # set by finalize_stream
-        self.device_bloom = None
+        self.device_bloom = self.device_encoder = None
         self.table_bytes_to_host = 0
 
     def add_batch(self, codes) -> None:
@@ -711,19 +719,23 @@ class DeviceCountAccumulator:
         return kmers[keep], counts[keep]
 
     def _finalize_device_table(self, u, c, flat, ci: int, bloom_factory,
-                               drop_low: bool):
+                               drop_low: bool, encoder_factory):
         """Common tail of both finalize routes: optional device Bloom build
-        (model.device_bloom) and optional low-key transfer drop, then the
-        chunk copies.  Dispatch order on the one stream: the table copies go
-        FIRST so the transfer starts at once; the Bloom feed runs behind
-        them on the device while the host starts to encode; the byte pack
-        and the pull of the filter bytes come last.  Sets
-        ``self.device_bloom`` to the fed DeviceBloomBuilder (None when no
-        build ran)."""
+        (model.device_bloom), optional device array encode
+        (model.device_encode, only beside the Bloom build) and optional
+        low-key transfer drop, then the chunk copies.  Dispatch order on the
+        one stream: the table copies go FIRST so the transfer starts at
+        once; the encoder's pairs and the Bloom feed run behind them on the
+        device while the host starts to encode; the byte pack and the pull
+        of the filter bytes come last.  With the device encode and
+        ``drop_low`` no table crosses at all.  Sets ``self.device_bloom``
+        to the fed DeviceBloomBuilder and ``self.device_encoder`` to the
+        fed DeviceArrayEncoder (None where they did not engage)."""
         total = int(flat[0])
         hist = flat[1:4].astype(np.int64)
         n_real = int(flat[4])
-        bloom = None
+        bf_num = 1 if ci == 1 else 3
+        bloom = enc = None
         if bloom_factory is not None and n_real:
             try:
                 bloom = bloom_factory(hist)
@@ -731,24 +743,39 @@ class DeviceCountAccumulator:
                 if verbose():
                     print(f"   device bloom build not taken ({e}); the "
                           f"host inserts")
-        if bloom is not None and drop_low:
+        if bloom is not None and encoder_factory is not None:
+            n_arr = total - int(hist[:bf_num].sum())
+            try:  # the drop's new buffers are the encoder's input
+                enc = encoder_factory(n_arr, u, 12 * u.numel())
+            except ValueError as e:  # not on a card, or no room: the host
+                if verbose():
+                    print(f"   device array encode not taken ({e}); the "
+                          f"host encodes")
+        chunks = iter(())
+        if enc is not None and drop_low:
             with timing.span("finalize.drop_low"):
-                bf_num = 1 if ci == 1 else 3
-                su, sc, flat2 = _drop_compact(u, c, ci + bf_num)
-                n_stream = int(flat2[4])
+                enc.feed_table(*_drop_low(u, c, ci + bf_num))
         else:
-            su, sc, n_stream = u, c, n_real
-        with timing.span("finalize.copy_dispatch"):
-            chunks = iter(())
-            if total:
-                self.table_bytes_to_host = n_stream * (su.element_size()
-                                                       + sc.element_size())
-                chunks = _stream_table(su, sc, n_stream, ci)
+            if bloom is not None and drop_low:
+                with timing.span("finalize.drop_low"):
+                    su, sc, flat2 = _drop_compact(u, c, ci + bf_num)
+                    n_stream = int(flat2[4])
+            else:
+                su, sc, n_stream = u, c, n_real
+            with timing.span("finalize.copy_dispatch"):
+                if total:
+                    self.table_bytes_to_host = n_stream * (
+                        su.element_size() + sc.element_size())
+                    chunks = _stream_table(su, sc, n_stream, ci)
+            if enc is not None:
+                with timing.span("finalize.drop_low"):
+                    enc.feed_table(*_drop_low(u, c, ci + bf_num))
         if bloom is not None:
             with timing.span("finalize.bloom_feed_dispatch"):
                 bloom.feed_table(u, c, n_real)
                 bloom.start_pull()
         self.device_bloom = bloom
+        self.device_encoder = enc
         return total, hist, chunks
 
     @staticmethod
@@ -772,7 +799,7 @@ class DeviceCountAccumulator:
 
     def finalize_stream(self, ci: int = 1, cs: int = _U32_MAX,
                         n_chunks: int = 16, bloom_factory=None,
-                        drop_low: bool = False):
+                        drop_low: bool = False, encoder_factory=None):
         """Streaming finalize: returns (total, low_hist, chunk_iter) where
         ``chunk_iter`` yields (uint64 kmers, uint32 counts) numpy chunks in
         ascending k-mer order, ci-filtered and cs-clamped; ``total`` and
@@ -785,6 +812,12 @@ class DeviceCountAccumulator:
         ``drop_low`` additionally drops the Bloom-bound keys (and sub-ci
         keys) from the host transfer — only valid when the caller does not
         need the low pairs on the host (no KMC database spool).
+        ``encoder_factory`` (callable(n_arr, table_keys, extra_bytes) ->
+        model.device_encode.DeviceArrayEncoder, raising ValueError where it
+        does not engage) opts into the coupled-array encode on the device,
+        beside the device Bloom build; the encoder lands, fed with the
+        array-bound pairs, on ``self.device_encoder``, and with
+        ``drop_low`` the table no longer streams to the host.
 
         When runs left the device — before or DURING the merge that this
         call makes — the table comes from the disk route (one out-of-core
@@ -793,7 +826,7 @@ class DeviceCountAccumulator:
         (``self.device_bloom`` stays None, the host inserts) and
         ``drop_low`` is ignored."""
         cs = min(int(cs), _U32_MAX)
-        self.device_bloom = None
+        self.device_bloom = self.device_encoder = None
         self.table_bytes_to_host = 0
         if (not self.runs and not self.host_runs and not self.disk_runs
                 and self.raw):
@@ -815,4 +848,4 @@ class DeviceCountAccumulator:
             c = _clamp_cs(c, cs)  # clamp before stats, feed and drop
             flat = _final_stats(u, c, ci)
         return self._finalize_device_table(u, c, flat, ci, bloom_factory,
-                                           drop_low)
+                                           drop_low, encoder_factory)

@@ -7,7 +7,10 @@ segmenter), a second one copies them to the device, the main thread enqueues ext
 the finalized table streams back in chunks that feed the KMC1 spool and the
 native coupled-array encoder.  The Bloom bank is built on the device from
 the counted table (``model.device_bloom``); ``KMCEX_DEVICE_BLOOM=0`` selects
-the host insert instead, and the model bytes are the same either way.  A
+the host insert instead, and the model bytes are the same either way.
+Beside the device Bloom build, on one card, the coupled arrays are encoded
+there too (``model.device_encode``), from the table on the card; the table
+then streams only for the KMC1 spool and ``keep_pairs``.  A
 table that outgrows the device spills to the host and disk levels of
 ``count.device_lsm``; ``ckpt_dir`` makes the count phase resumable.
 ``accumulator="sharded"`` counts on a mesh of shards (``parallel.sharded``),
@@ -34,6 +37,7 @@ from kmcex_tpu_torch.model.device_bloom import (
     DeviceBloomBuilder,
     ShardedDeviceBloomBuilder,
 )
+from kmcex_tpu_torch.model.device_encode import DeviceArrayEncoder
 from kmcex_tpu_torch.model.kmodel import KModel, get_model, split_chunk
 from kmcex_tpu_torch.parallel import distributed
 from kmcex_tpu_torch.parallel.sharded import ShardedCountAccumulator, make_mesh
@@ -342,6 +346,7 @@ def _count_encode(input_spec, k, ci, cs, num_hash, num_bit, seg_len,
                 if crash_after and nb - skip >= crash_after:
                     raise RuntimeError(
                         "injected crash (KMCEX_CRASH_AFTER_BATCHES)")
+    km = get_model(ci, cs, num_hash, num_bit)
     fin_kwargs = {}
     if os.environ.get("KMCEX_DEVICE_BLOOM", "1") != "0":
         if sharded:
@@ -353,9 +358,16 @@ def _count_encode(input_spec, k, ci, cs, num_hash, num_bit, seg_len,
                 bloom_factory=lambda hist: DeviceBloomBuilder(
                     k, ci, cs, num_hash, hist, device=device),
                 drop_low=(not keep_pairs) and db_path is None,
+                encoder_factory=lambda n_arr, table, extra: (
+                    DeviceArrayEncoder(k, km, n_arr, table, extra)),
             )
     with tr.span("merge+stats"):
         total, low_hist, chunks = acc.finalize_stream(ci, cs, **fin_kwargs)
+    # the arrays are encoded on the card from its table: the table thread
+    # only spools and keeps pairs, and on the model path pulls nothing
+    device_encoder = None if sharded else acc.device_encoder
+    for name in ("table.pull_wait", "table.host_prep"):
+        tr.add(name, 0.0)
 
     bf_num = 1 if ci == 1 else 3
     writer = None
@@ -373,6 +385,8 @@ def _count_encode(input_spec, k, ci, cs, num_hash, num_bit, seg_len,
             with timing.span("spool.db_write"):
                 writer.write_chunk(ku, kc.astype(np.uint64))
             timing.count("spool.pairs", len(ku))
+        if device_encoder is not None:
+            return None
         with timing.span("table.host_prep"):
             return split_chunk(ku, kc, ci, bf_num)
 
@@ -382,11 +396,11 @@ def _count_encode(input_spec, k, ci, cs, num_hash, num_bit, seg_len,
                                name="kmcex.table")
     t_count = time.perf_counter() - t0
 
-    km = get_model(ci, cs, num_hash, num_bit)
     try:
         with tr.span("transfer+encode"):
             km.init_from_chunks(chunks, k, total, low_hist,
-                                device_bloom=acc.device_bloom)
+                                device_bloom=acc.device_bloom,
+                                device_encoder=device_encoder)
     except BaseException:
         # a partial spool must not look like a complete database
         if writer is not None:

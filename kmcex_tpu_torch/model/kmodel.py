@@ -44,6 +44,16 @@ def _bloom_threads() -> int:
     return int(os.environ.get("KMCEX_BLOOM_THREADS", "1"))
 
 
+def km_sizes(km_kmercount: int, n_hash: int) -> tuple[int, int]:
+    """(bytes of one coupled array, bytes of km_back) for ``km_kmercount``
+    array-bound k-mers (kmodel.hpp:436-456).  (km_kmercount>>4) is clamped
+    to >=1: the reference formula gives 0-byte arrays for <16 k-mers and
+    then SIGFPEs hashing modulo zero; the clamp only changes inputs the
+    reference cannot process (load recomputes with the same clamp)."""
+    units = max(km_kmercount, 16) >> 4
+    return units * n_hash, units * (n_hash - 2)
+
+
 class PreSplitChunk(typing.NamedTuple):
     """A chunk already routed by counter (see split_chunk): the producer
     thread pays the numpy masking cost so the encode thread only feeds."""
@@ -153,7 +163,8 @@ class KModel:
         )
 
     def init_from_chunks(self, chunk_iter, k: int, total_kmer_count: int,
-                         low_hist: np.ndarray, device_bloom=None) -> None:
+                         low_hist: np.ndarray, device_bloom=None,
+                         device_encoder=None) -> None:
         """Streaming build: ``chunk_iter`` yields (kmers_u64, counts) chunks
         in listing order; ``total_kmer_count`` and ``low_hist`` (counts of
         counter==ci+i for i<3) must cover the whole stream (the reference's
@@ -168,6 +179,12 @@ class KModel:
         bank at the end (order-free scatter-OR makes the result
         bit-identical to the host build), and any low-count pairs still
         present in the chunks are NOT re-inserted.
+
+        ``device_encoder`` (model.device_encode.DeviceArrayEncoder, fed with
+        this stream's array-bound pairs on the card; only beside a
+        ``device_bloom``) replaces the native coupled-array encoder: the
+        chunks are drained unread, and the finished arrays and rest pairs
+        are pulled at the end.
 
         Its phases are spans ``encode.*`` of the current ``utils.timing``
         record (each present, 0.0 where it never ran)."""
@@ -184,15 +201,15 @@ class KModel:
         for name in ("chunk_wait", "array_feed", "array_finish", "rest_build",
                      "route_split"):
             timing.add(f"encode.{name}", 0.0)
-        enc = native.BitArrayEncoder(
-            k, self.n_bits, self.n_hash, self.occu_bin.occ2bin_lut,
-            self.bit1.reshape(-1), self.bit2.reshape(-1), self.km_bit_size,
-            self.km_back, self.bit_km_back, self.km_back_num_hash,
-            bucket_size=BUCKET_SIZE,
-        )
-        if device_bloom is not None:
+        if device_encoder is not None:
+            if device_bloom is None:
+                raise ValueError("the device encoder needs the device Bloom "
+                                 "build: the chunks' low pairs are not read")
+            rest_kmers, rest_occs = self._encode_on_device(
+                chunk_iter, device_encoder, device_bloom)
+        elif device_bloom is not None:
             rest_kmers, rest_occs = self._init_from_chunks_device_bloom(
-                chunk_iter, enc, device_bloom)
+                chunk_iter, self._native_encoder(k), device_bloom)
         else:
             # Pass 2: route. BF inserts are commutative scatter-ORs —
             # order-free, so they run on a worker thread (the native insert
@@ -202,7 +219,7 @@ class KModel:
             worker = _BloomWorker(self.bloom, k)
             try:
                 rest_kmers, rest_occs = self._feed_arrays(
-                    chunk_iter, enc, worker.put)
+                    chunk_iter, self._native_encoder(k), worker.put)
             finally:
                 worker.join()
             if worker.error is not None:
@@ -212,6 +229,14 @@ class KModel:
                 self.kld.push_back(rest_kmers, rest_occs)
             self.kld.build()
         self.build_time_cost = time.perf_counter() - t0
+
+    def _native_encoder(self, k: int) -> native.BitArrayEncoder:
+        return native.BitArrayEncoder(
+            k, self.n_bits, self.n_hash, self.occu_bin.occ2bin_lut,
+            self.bit1.reshape(-1), self.bit2.reshape(-1), self.km_bit_size,
+            self.km_back, self.bit_km_back, self.km_back_num_hash,
+            bucket_size=BUCKET_SIZE,
+        )
 
     def _feed_arrays(self, chunk_iter, enc, put_low):
         """Feed the order-dependent coupled-array encoder from the chunk
@@ -238,6 +263,22 @@ class KModel:
         the finished filter bytes are pulled at the end (the copy has been
         in flight since the count finalize)."""
         rest = self._feed_arrays(chunk_iter, enc, None)
+        with timing.span("encode.bloom_pull"):
+            device_bloom.into(self.bloom)
+        return rest
+
+    def _encode_on_device(self, chunk_iter, encoder, device_bloom):
+        """Encode loop when the arrays are encoded on the card: dispatch,
+        drain the chunks (the table thread spools or keeps them; the card
+        has the array-bound pairs and the Bloom bank), then pull the arrays
+        and the filter bytes.  ``encode.array_feed`` is the dispatch plus
+        the wait for the arrays."""
+        with timing.span("encode.array_feed"):
+            encoder.dispatch()
+        for _ in timing.timed(chunk_iter, "encode.chunk_wait"):
+            pass
+        with timing.span("encode.array_feed"):
+            rest = encoder.into(self)
         with timing.span("encode.bloom_pull"):
             device_bloom.into(self.bloom)
         return rest
@@ -311,14 +352,9 @@ class KModel:
         return km
 
     def _init_km_parameter(self, km_kmercount: int) -> None:
-        # kmodel.hpp:436-456.  (km_kmercount>>4) is clamped to >=1: the
-        # reference formula gives 0-byte arrays for <16 k-mers and then
-        # SIGFPEs hashing modulo zero; the clamp only changes inputs the
-        # reference cannot process (load recomputes with the same clamp).
-        km_kmercount = max(km_kmercount, 16)
-        self.km_byte_size = (km_kmercount >> 4) * self.n_hash
+        self.km_byte_size, self.byte_km_back = km_sizes(km_kmercount,
+                                                        self.n_hash)
         self.km_bit_size = self.km_byte_size << 3
-        self.byte_km_back = (km_kmercount >> 4) * self.km_back_num_hash
         self.bit_km_back = self.byte_km_back << 3
         self.bit1 = np.zeros((self.n_bits, self.km_byte_size), dtype=np.uint8)
         self.bit2 = np.zeros((self.n_bits, self.km_byte_size), dtype=np.uint8)

@@ -20,7 +20,7 @@ import torch
 from kmcex_tpu_torch.native.build import build_kernels
 
 LAUNCHES: dict[str, int] = {"sort_u64": 0, "merge_sorted_u64": 0,
-                            "compact_pairs": 0}
+                            "compact_pairs": 0, "encode_arrays": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -57,6 +57,9 @@ def _declare(L: ctypes.CDLL) -> None:
     L.kx_compact_tile.argtypes = []
     L.kx_compact_scratch_words.restype = i64
     L.kx_compact_scratch_words.argtypes = [i64]
+    L.kx_encode_arrays.restype = i32
+    L.kx_encode_arrays.argtypes = [p, p, i64, i32, i32, i32, i32, i64, i64,
+                                   p, i64, i64, i32] + [p] * 16
 
 
 def stream_ptr(t: torch.Tensor) -> int:

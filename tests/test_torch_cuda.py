@@ -550,9 +550,10 @@ def test_device_kmodel_cuda_equals_cpu_and_host(dev, host_model):
 
 
 def test_count_encode_model_only_cuda_equals_cpu(dev, tmp_path, monkeypatch):
-    """The model-only path on the card (device Bloom + drop, one more
-    compaction launch than with the DB) saves the same model as the CPU run
-    and as the host-insert configuration."""
+    """The model-only path on the card (device Bloom + drop, the arrays
+    encoded on the card) saves the same model as the CPU run, as the run
+    with the DB (its drop makes the encoder's pairs: as many compaction
+    launches) and as the host-insert configuration (the native encoder)."""
     from kmcex_tpu_torch.count.pipeline import count_encode
 
     rng = np.random.default_rng(6)
@@ -569,20 +570,92 @@ def test_count_encode_model_only_cuda_equals_cpu(dev, tmp_path, monkeypatch):
     runs = (("cpu", "cpu", {}, "1"), ("cuda", dev, {}, "1"),
             ("cuda_db", dev, {"db_path": str(tmp_path / "o.res")}, "1"),
             ("cuda_host", dev, {}, "0"))
-    launches = {}
+    launches, encodes = {}, {}
     for name, d, kwargs, env in runs:
         monkeypatch.setenv("KMCEX_DEVICE_BLOOM", env)
         kernels.reset_launches()
         km, _, _, stats = count_encode(str(fq), k=31, ci=2, device=d,
                                        keep_pairs=False, **kwargs)
         launches[name] = kernels.LAUNCHES["compact_pairs"]
+        encodes[name] = kernels.LAUNCHES["encode_arrays"]
+        assert (stats.counters.get("encode.device_kmers", 0)
+                == km.km_kmercount * encodes[name])
         km.save(tmp_path / name)
         saved[name] = [(tmp_path / name / fn).read_bytes()
                        for fn in ("header", "km.bin", "rest.bin")]
         if name in ("cpu", "cuda"):
             assert "finalize.drop_low" in stats.phases
-    assert launches["cuda"] == launches["cuda_db"] + 1
+    assert launches["cuda"] == launches["cuda_db"]
+    assert encodes == {"cpu": 0, "cuda": 1, "cuda_db": 1, "cuda_host": 0}
     assert saved["cuda"] == saved["cpu"] == saved["cuda_db"] == saved["cuda_host"]
+
+
+def _encode_plan(n, n_bits=5, array_bytes=None, bucket=None, batch=None):
+    from kmcex_tpu_torch.core.occu_bin import OccuBin
+    from kmcex_tpu_torch.model import device_encode, kmodel
+
+    kb, bb = kmodel.km_sizes(n, 7)
+    kb = array_bytes or kb
+    return device_encode.EncodePlan(
+        31, n_bits, 7, 5, kb, bb, OccuBin(1024, 7).occ2bin_lut,
+        bucket or kmodel.BUCKET_SIZE,
+        batch or device_encode.default_batch(7, 8 * kb))
+
+
+# (pairs, n_bits, array bytes, bucket, batch); None: the model's choice
+ENCODE_CASES = {
+    "sa_size": (3_000_000, 5, None, None, None),
+    "flushes": (2 * 5 * 64 + 81, 5, None, 64, 1000),
+    "tiny_w7": (3 * 3 * 64 + 70, 3, 40, 64, 7),
+    "tiny_wmax": (4 * 3 * 64, 3, 40, 64, 1170),
+}
+
+
+@pytest.mark.parametrize("case", list(ENCODE_CASES))
+def test_encode_arrays_cuda_equals_native(dev, case):
+    """The CUDA encode against the native host encoder, byte for byte
+    (bit1, bit2, km_back, the rest pairs in order): on a table of the SA
+    cell's size, over several flushes of small buckets, and on arrays of a
+    few hundred bits where most inserts conflict; one launch a call, and
+    the plain version's counts of attempts where it runs."""
+    from kmcex_tpu_torch import native
+    from kmcex_tpu_torch.model import device_encode
+
+    n, nb, arr, bucket, batch = ENCODE_CASES[case]
+    plan = _encode_plan(n, nb, arr, bucket, batch)
+    rng = np.random.default_rng(n)
+    keys = np.unique(rng.integers(0, 1 << 62, n + n // 50 + 64,
+                                  dtype=np.uint64))[:n]
+    occs = (1 + rng.geometric(0.1, n)).astype(np.uint32)
+    occs[rng.random(n) < 0.01] = 5000
+    size = nb * plan.km_byte_size
+    want = [np.zeros(size, np.uint8), np.zeros(size, np.uint8),
+            np.zeros(plan.byte_km_back, np.uint8)]
+    enc = native.BitArrayEncoder(31, nb, 7, plan.occ2bin, want[0], want[1],
+                                 8 * plan.km_byte_size, want[2],
+                                 8 * plan.byte_km_back, 5,
+                                 bucket_size=plan.bucket_size)
+    enc.feed(keys, occs)
+    rk, ro = enc.finish()
+    kt = torch.from_numpy(keys.view(np.int64))
+    ot = torch.from_numpy(occs.view(np.int32))
+    kernels.reset_launches()
+    got = device_encode.encode_arrays(kt.to(dev), ot.to(dev), plan)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["encode_arrays"] == 1
+    rest_n, attempts, serial = got.stats.tolist()
+    for g, w in zip(got[:3], want):
+        assert np.array_equal(g.cpu().numpy(), w)
+    assert rest_n == len(rk)
+    assert np.array_equal(got.rest_keys[:rest_n].cpu().numpy().view(np.uint64),
+                          rk)
+    assert np.array_equal(got.rest_occs[:rest_n].cpu().numpy().view(np.uint32),
+                          ro)
+    if n < 10_000:
+        assert got.stats.tolist() == device_encode.encode_arrays(
+            kt, ot, plan).stats.tolist()
+    if arr is not None:
+        assert serial > 0 and len(np.unique(rk)) < len(rk)
 
 
 @pytest.mark.parametrize("route,disk_bytes", [("host", 0), ("disk", 60_000)])
@@ -787,7 +860,8 @@ def test_build_spans_meet_the_device_trace(dev, tmp_path, monkeypatch):
     c = stats.counters
     assert stats.tiers["device_merges"] >= 2
     ops = {"sort_u64": "sort_u64.keys", "merge_sorted_u64": "merge_sorted_u64.a",
-           "compact_pairs": "compact_pairs.pairs"}
+           "compact_pairs": "compact_pairs.pairs",
+           "encode_arrays": "encode.device_kmers"}
     calls = {op: sum(1 for e in events if e.get("ph") == "C"
                      and e["name"] == name) for op, name in ops.items()}
     assert calls == kernels.LAUNCHES, (calls, kernels.LAUNCHES)

@@ -174,7 +174,7 @@ def test_soak_artifact_has_every_key(small_soak, key):
         assert art[key] == "cpu" and art["peak_device_mb"] is None
     if key == "kernel_launches":  # CPU tensors take the plain versions
         assert art[key] == {"sort_u64": 0, "merge_sorted_u64": 0,
-                            "compact_pairs": 0}
+                            "compact_pairs": 0, "encode_arrays": 0}
     if key == "phases":
         assert {"stream+extract", "merge+stats",
                 "transfer+encode"} <= set(art[key])
