@@ -34,8 +34,7 @@ Phases, one line each (any failure exits non-zero):
      device: 10,883,515 distinct k-mers, and the KMC1 database and the model
      byte-identical to an independent numpy count fed to the port's host
      encoder (host Bloom insert); its peak device memory; then the same
-     build twice more, warm, with ``KMCEX_DEVICE_BLOOM=0`` and without, the
-     two encode times side by side;
+     build once more, warm, with its phases;
   5. the same on the headline workload (200,000 reads, 0.2% errors) with a
      small raw tier, so the run LSM collapses and merges;
   6. the Bloom bank alone on the realistic table: ``DeviceBloomBuilder`` fed
@@ -237,6 +236,38 @@ def compare_exact(pairs) -> tuple[int, int]:
     return bad, err
 
 
+def padded_run(rng, m: int, fill: float, dev):
+    """An ascending run of m keys (half with bit 63 set), the last
+    ``1 - fill`` of it (SENTINEL, 0) padding, and int32 payloads."""
+    import torch
+
+    from kmcex_tpu_torch.core.codec import BIAS
+    from kmcex_tpu_torch.count import sort
+
+    k = torch.from_numpy(rng.integers(0, 1 << 63, m, dtype=np.int64)
+                         | np.where(rng.random(m) < 0.5, BIAS, 0)).to(dev)
+    k = sort.sort_u64_plain(k)
+    real = int(m * fill)
+    k[real:] = SENT
+    c = torch.from_numpy(rng.integers(1, 1 << 20, m).astype(np.int32)).to(dev)
+    c[real:] = 0
+    return k, c
+
+
+def tie_run(rng, m: int, first_payload: int, dev):
+    """An ascending run of m keys drawn from 2^16 values; the payload is a
+    unique index, so a wrong order among equal keys shows."""
+    import torch
+
+    from kmcex_tpu_torch.count import sort
+
+    k = torch.from_numpy(rng.integers(0, 1 << 16, m, dtype=np.int64)).to(dev)
+    k = sort.sort_u64_plain(k << 40)
+    c = torch.arange(first_payload, first_payload + m, dtype=torch.int32,
+                     device=dev)
+    return k, c
+
+
 def merge_runs_prefix_sum(ka, ca, kb, cb):
     """The run LSM's merge step as it was before it used the uniqueness of
     its inputs: segment sums by a prefix sum differenced at run boundaries
@@ -273,7 +304,6 @@ def phase_kernels(dev):
 
     from kmcex_tpu_torch.core.codec import BIAS
     from kmcex_tpu_torch.count import compact, device_lsm, sort
-    from kmcex_tpu_torch.tools.tune_merge import padded_run, tie_run
 
     rng = np.random.default_rng(2024)
     out = {}
@@ -1231,8 +1261,8 @@ def phase_soak(dev, work: pathlib.Path, serving8: dict):
     from kmcex_tpu_torch.model.kmodel import get_model
     from kmcex_tpu_torch.tools import soak
 
-    forced = [k_ for k_ in (*SPILL_ENV, "KMCEX_DEVICE_BLOOM",
-                            "KMCEX_TRACE_DIR") if k_ in os.environ]
+    forced = [k_ for k_ in (*SPILL_ENV, "KMCEX_TRACE_DIR")
+              if k_ in os.environ]
     if forced:
         raise AssertionError(f"soak: set in the environment: {forced}")
     torch.cuda.empty_cache()
@@ -1365,31 +1395,19 @@ def main() -> int:
         reads_1k = reads[:1000].copy()
         del reads
         st_cli = st
-        # the same build twice more, warm: host insert, then device build
+        # the same build once more, warm
         fq = work / "realistic.fastq"
-        warm = {}
-        for name, env in (("host_insert", {"KMCEX_DEVICE_BLOOM": "0"}),
-                          ("device_bloom", {})):
-            d_, warm[name] = cli_build(fq, work / f"warm_{name}", env)
-            same_files(name, work / f"warm_{name}", work / "realistic_oracle")
-            if d_ != REALISTIC_DISTINCT:
-                raise AssertionError(f"{name}: {d_} distinct k-mers")
-        if "encode.bloom_insert" not in warm["host_insert"]["phases"]:
-            raise AssertionError("KMCEX_DEVICE_BLOOM=0 did not insert on "
-                                 "the host")
+        d_, warm = cli_build(fq, work / "warm")
+        same_files("warm", work / "warm", work / "realistic_oracle")
+        if d_ != REALISTIC_DISTINCT:
+            raise AssertionError(f"warm: {d_} distinct k-mers")
         print(f"[realistic] warm, one process: encode "
-              f"{warm['device_bloom']['encode_seconds']:.3f} s with the "
-              f"device Bloom build (count "
-              f"{warm['device_bloom']['count_seconds']:.3f} s; "
-              f"{encode_line(warm['device_bloom'])}) against "
-              f"{warm['host_insert']['encode_seconds']:.3f} s with "
-              f"KMCEX_DEVICE_BLOOM=0 (count "
-              f"{warm['host_insert']['count_seconds']:.3f} s; "
-              f"{encode_line(warm['host_insert'])}); both byte-identical "
-              f"to the oracle")
-        print("[realistic] warm device-Bloom run, phases: " + ", ".join(
+              f"{warm['encode_seconds']:.3f} s, count "
+              f"{warm['count_seconds']:.3f} s ({encode_line(warm)}); "
+              f"byte-identical to the oracle")
+        print("[realistic] warm run, phases: " + ", ".join(
             f"{k_} {v:.3f}" for k_, v in sorted(
-                warm["device_bloom"]["phases"].items(), key=lambda kv: -kv[1])))
+                warm["phases"].items(), key=lambda kv: -kv[1])))
 
         phase_bloom_alone(dev, kmers, counts)
         l6 = phase_model_only(work, fq, work / "realistic", st_cli,

@@ -17,15 +17,11 @@ subset, in PyTorch:
     reference's counters are clamped when its kmc binary writes the
     database, so every consumer must see clamped values).  The table then
     streams to pinned host memory in ~16 ascending chunks with
-    ``non_blocking`` copies, ci-filtered on the host.  With a
-    ``bloom_factory`` the Bloom bank is built on the device from the full
-    table behind those copies (``model.device_bloom``); with ``drop_low``
-    the keys that only feed the Bloom bank are masked out and the table is
-    recompacted (``compact_pairs``) before it streams, so they never cross
-    to the host.  With an ``encoder_factory`` beside the Bloom build, the
-    array-bound pairs are dropped out on the device for the coupled-array
-    encode there (``model.device_encode``); with ``drop_low`` too, the
-    table does not stream at all.
+    ``non_blocking`` copies, ci-filtered on the host.  A build's route
+    (``model.route.BuildRoute``) says what of the table streams: all of
+    it, the pairs a low-key drop keeps (the low keys masked out and the
+    table recompacted with ``compact_pairs``), or nothing; it is fed the
+    table, and the drop's pairs, on the device.
   * **Host level** — a run that reaches ``spill_threshold`` entries leaves
     the device: one synchronous copy to host RAM, pads dropped, then a
     size-tiered cascade of two-pointer merges (``native.merge_runs``).  The
@@ -35,8 +31,8 @@ subset, in PyTorch:
     largest one streams to a run file and leaves RAM; the finalize then
     merges disk and RAM runs out of core in ONE k-way pass
     (``one_pass_finalize``) that sizes the encode while it spools the merged
-    table.  On the host and disk routes no device Bloom build engages and
-    ``drop_low`` is ignored: the host inserts.
+    table.  The host and disk routes stream the whole table and never
+    reach the build's route: the host inserts the Bloom bank.
   * **Checkpoint** — every tier is a set of sorted (kmers, counts) runs, so
     a checkpoint drains the device tiers to the host level and writes each
     run as a run file, the manifest last.
@@ -85,7 +81,6 @@ from kmcex_tpu_torch.count.extract import (
 from kmcex_tpu_torch.count.sort import merge_sorted_u64
 from kmcex_tpu_torch.utils import timing
 from kmcex_tpu_torch.utils.device import resolve_device
-from kmcex_tpu_torch.utils.timing import verbose
 
 _U32_MAX = 0xFFFFFFFF
 _U64_SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -161,13 +156,6 @@ def _drop_low(u, c, thresh: int):
                          torch.where(keep, c, 0))
 
 
-def _drop_compact(u, c, thresh: int):
-    """The low-key drop of the model-only path with the dropped table's own
-    stats.  Returns (u2, c2, stats2)."""
-    u2, c2 = _drop_low(u, c, thresh)
-    return u2, c2, _final_stats(u2, c2, thresh)
-
-
 _STREAM_CHUNKS = 16
 
 
@@ -183,7 +171,8 @@ def _stream_table(u, c, n_real: int, ci: int):
     pending = []
     on_gpu = u.device.type == "cuda"
     for a in range(0, n_real, m):
-        ku, kc = u[a : a + m], c[a : a + m]
+        b = min(a + m, n_real)
+        ku, kc = u[a:b], c[a:b]
         if on_gpu:
             hk = torch.empty(ku.shape, dtype=ku.dtype, pin_memory=True)
             hc = torch.empty(kc.shape, dtype=kc.dtype, pin_memory=True)
@@ -357,7 +346,6 @@ class DeviceCountAccumulator:
                             "host_merge_seconds": 0.0,
                             "merge_pass_seconds": 0.0}
         # set by finalize_stream
-        self.device_bloom = self.device_encoder = None
         self.table_bytes_to_host = 0
 
     def add_batch(self, codes) -> None:
@@ -718,65 +706,39 @@ class DeviceCountAccumulator:
         keep = (kmers != _U64_SENTINEL) & (counts >= ci)
         return kmers[keep], counts[keep]
 
-    def _finalize_device_table(self, u, c, flat, ci: int, bloom_factory,
-                               drop_low: bool, encoder_factory):
-        """Common tail of both finalize routes: optional device Bloom build
-        (model.device_bloom), optional device array encode
-        (model.device_encode, only beside the Bloom build) and optional
-        low-key transfer drop, then the chunk copies.  Dispatch order on the
-        one stream: the table copies go FIRST so the transfer starts at
-        once; the encoder's pairs and the Bloom feed run behind them on the
-        device while the host starts to encode; the byte pack and the pull
-        of the filter bytes come last.  With the device encode and
-        ``drop_low`` no table crosses at all.  Sets ``self.device_bloom``
-        to the fed DeviceBloomBuilder and ``self.device_encoder`` to the
-        fed DeviceArrayEncoder (None where they did not engage)."""
+    def _finalize_device_table(self, u, c, flat, ci: int, route):
+        """Common tail of both finalize routes, in a fixed dispatch order on
+        the one stream: the whole table's copies (so the transfer starts at
+        once), the low-key drop, the dropped table's copies, then what the
+        ``route`` (model.route.BuildRoute) builds from the table and the
+        drop's pairs, which runs behind the copies on the device while the
+        host starts to encode.  Without a route the whole table streams."""
         total = int(flat[0])
         hist = flat[1:4].astype(np.int64)
         n_real = int(flat[4])
-        bf_num = 1 if ci == 1 else 3
-        bloom = enc = None
-        if bloom_factory is not None and n_real:
-            try:
-                bloom = bloom_factory(hist)
-            except ValueError as e:  # bitmap too large: the host builds
-                if verbose():
-                    print(f"   device bloom build not taken ({e}); the "
-                          f"host inserts")
-        if bloom is not None and encoder_factory is not None:
-            n_arr = total - int(hist[:bf_num].sum())
-            try:  # the drop's new buffers are the encoder's input
-                enc = encoder_factory(n_arr, u, 12 * u.numel())
-            except ValueError as e:  # not on a card, or no room: the host
-                if verbose():
-                    print(f"   device array encode not taken ({e}); the "
-                          f"host encodes")
+        plan = (route.plan_table(total, hist, n_real, u) if route is not None
+                else None)
         chunks = iter(())
-        if enc is not None and drop_low:
+        if plan is None or plan.stream == "table":
+            chunks = self._copy_out(u, c, n_real, total, ci)
+        kept = None
+        if plan is not None and plan.drop_below:
             with timing.span("finalize.drop_low"):
-                enc.feed_table(*_drop_low(u, c, ci + bf_num))
-        else:
-            if bloom is not None and drop_low:
-                with timing.span("finalize.drop_low"):
-                    su, sc, flat2 = _drop_compact(u, c, ci + bf_num)
-                    n_stream = int(flat2[4])
-            else:
-                su, sc, n_stream = u, c, n_real
-            with timing.span("finalize.copy_dispatch"):
-                if total:
-                    self.table_bytes_to_host = n_stream * (
-                        su.element_size() + sc.element_size())
-                    chunks = _stream_table(su, sc, n_stream, ci)
-            if enc is not None:
-                with timing.span("finalize.drop_low"):
-                    enc.feed_table(*_drop_low(u, c, ci + bf_num))
-        if bloom is not None:
-            with timing.span("finalize.bloom_feed_dispatch"):
-                bloom.feed_table(u, c, n_real)
-                bloom.start_pull()
-        self.device_bloom = bloom
-        self.device_encoder = enc
+                kept = _drop_low(u, c, plan.drop_below)
+            if plan.stream == "dropped":
+                chunks = self._copy_out(*kept, plan.n_kept, total, ci)
+        if route is not None:
+            route.feed(u, c, n_real, kept)
         return total, hist, chunks
+
+    def _copy_out(self, u, c, n: int, total: int, ci: int):
+        """Dispatch the copies of ``u[:n]`` / ``c[:n]`` to the host."""
+        with timing.span("finalize.copy_dispatch"):
+            if not total:
+                return iter(())
+            self.table_bytes_to_host = n * (u.element_size()
+                                            + c.element_size())
+            return _stream_table(u, c, n, ci)
 
     @staticmethod
     def _stream_host_run(kmers, counts, ci: int, cs: int, n_chunks: int):
@@ -798,35 +760,23 @@ class DeviceCountAccumulator:
         return total, hist, hit()
 
     def finalize_stream(self, ci: int = 1, cs: int = _U32_MAX,
-                        n_chunks: int = 16, bloom_factory=None,
-                        drop_low: bool = False, encoder_factory=None):
+                        n_chunks: int = 16, route=None):
         """Streaming finalize: returns (total, low_hist, chunk_iter) where
         ``chunk_iter`` yields (uint64 kmers, uint32 counts) numpy chunks in
         ascending k-mer order, ci-filtered and cs-clamped; ``total`` and
         ``low_hist`` (count of counter == ci+i, i < 3) are the encoder's
         sizing pass over the whole table.
 
-        ``bloom_factory`` (callable(low_hist) ->
-        model.device_bloom.DeviceBloomBuilder) opts into building the Bloom
-        bank on the device; it lands, fed, on ``self.device_bloom``.
-        ``drop_low`` additionally drops the Bloom-bound keys (and sub-ci
-        keys) from the host transfer — only valid when the caller does not
-        need the low pairs on the host (no KMC database spool).
-        ``encoder_factory`` (callable(n_arr, table_keys, extra_bytes) ->
-        model.device_encode.DeviceArrayEncoder, raising ValueError where it
-        does not engage) opts into the coupled-array encode on the device,
-        beside the device Bloom build; the encoder lands, fed with the
-        array-bound pairs, on ``self.device_encoder``, and with
-        ``drop_low`` the table no longer streams to the host.
+        ``route`` (model.route.BuildRoute) decides, for a table finalized on
+        the device, what of it streams and what is built from it there; it
+        holds what it built after this call.
 
         When runs left the device — before or DURING the merge that this
         call makes — the table comes from the disk route (one out-of-core
         merge pass) or the host route (``n_chunks`` slices of the merged
-        host run) instead: no Bloom build engages there
-        (``self.device_bloom`` stays None, the host inserts) and
-        ``drop_low`` is ignored."""
+        host run) instead, whole, and the route is not consulted: the host
+        inserts the Bloom bank."""
         cs = min(int(cs), _U32_MAX)
-        self.device_bloom = self.device_encoder = None
         self.table_bytes_to_host = 0
         if (not self.runs and not self.host_runs and not self.disk_runs
                 and self.raw):
@@ -847,5 +797,4 @@ class DeviceCountAccumulator:
             u, c, _ = self.runs[0]
             c = _clamp_cs(c, cs)  # clamp before stats, feed and drop
             flat = _final_stats(u, c, ci)
-        return self._finalize_device_table(u, c, flat, ci, bloom_factory,
-                                           drop_low, encoder_factory)
+        return self._finalize_device_table(u, c, flat, ci, route)

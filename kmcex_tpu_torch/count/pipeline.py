@@ -5,12 +5,10 @@ The counterpart of the JAX package's ``count/pipeline.py`` (``count_fastq``,
 PyTorch: a producer thread parses and 2-bit packs reads (native
 segmenter), a second one copies them to the device, the main thread enqueues extract / sort / merge work, and
 the finalized table streams back in chunks that feed the KMC1 spool and the
-native coupled-array encoder.  The Bloom bank is built on the device from
-the counted table (``model.device_bloom``); ``KMCEX_DEVICE_BLOOM=0`` selects
-the host insert instead, and the model bytes are the same either way.
-Beside the device Bloom build, on one card, the coupled arrays are encoded
-there too (``model.device_encode``), from the table on the card; the table
-then streams only for the KMC1 spool and ``keep_pairs``.  A
+model's encode.  The build's route (``model.route.BuildRoute``) decides
+where the Bloom bank and the coupled arrays are made and what of the table
+streams: on one card both are made there from the counted table, and the
+table then streams only for the KMC1 spool and ``keep_pairs``.  A
 table that outgrows the device spills to the host and disk levels of
 ``count.device_lsm``; ``ckpt_dir`` makes the count phase resumable.
 ``accumulator="sharded"`` counts on a mesh of shards (``parallel.sharded``),
@@ -33,12 +31,8 @@ from kmcex_tpu_torch.config import KParams
 from kmcex_tpu_torch.count.counter import CountAccumulator
 from kmcex_tpu_torch.count.device_lsm import DeviceCountAccumulator
 from kmcex_tpu_torch.io import fastq, kmc_db
-from kmcex_tpu_torch.model.device_bloom import (
-    DeviceBloomBuilder,
-    ShardedDeviceBloomBuilder,
-)
-from kmcex_tpu_torch.model.device_encode import DeviceArrayEncoder
-from kmcex_tpu_torch.model.kmodel import KModel, get_model, split_chunk
+from kmcex_tpu_torch.model.kmodel import KModel, get_model
+from kmcex_tpu_torch.model.route import BuildRoute
 from kmcex_tpu_torch.parallel import distributed
 from kmcex_tpu_torch.parallel.sharded import ShardedCountAccumulator, make_mesh
 from kmcex_tpu_torch.utils import prefetch_iterator, timing
@@ -220,10 +214,11 @@ def count_encode(
     listing (uint64 kmers, uint32 counts) only with ``keep_pairs`` (it costs
     host memory, not time), else None.
 
-    The Bloom bank is built on the device unless ``KMCEX_DEVICE_BLOOM=0``.
-    With ``accumulator="device"``, when the host needs no low pairs
-    (``keep_pairs=False`` and no ``db_path``) the keys that only feed the
-    Bloom bank are dropped from the transfer: the model-only path.
+    The Bloom bank is built on the device where the build's route
+    (``model.route``) can.  With ``accumulator="device"``, when the host
+    needs no low pairs (``keep_pairs=False`` and no ``db_path``) the keys
+    that only feed the Bloom bank are dropped from the transfer: the
+    model-only path.
 
     ``accumulator="sharded"`` runs the hash-routed accumulator over ``mesh``
     (``parallel.sharded``; default: every visible card, one shard each) and
@@ -347,29 +342,10 @@ def _count_encode(input_spec, k, ci, cs, num_hash, num_bit, seg_len,
                     raise RuntimeError(
                         "injected crash (KMCEX_CRASH_AFTER_BATCHES)")
     km = get_model(ci, cs, num_hash, num_bit)
-    fin_kwargs = {}
-    if os.environ.get("KMCEX_DEVICE_BLOOM", "1") != "0":
-        if sharded:
-            fin_kwargs = dict(
-                bloom_factory=lambda hist: ShardedDeviceBloomBuilder(
-                    mesh, k, ci, cs, num_hash, hist))
-        else:
-            fin_kwargs = dict(
-                bloom_factory=lambda hist: DeviceBloomBuilder(
-                    k, ci, cs, num_hash, hist, device=device),
-                drop_low=(not keep_pairs) and db_path is None,
-                encoder_factory=lambda n_arr, table, extra: (
-                    DeviceArrayEncoder(k, km, n_arr, table, extra)),
-            )
+    route = BuildRoute(km, k, keep_low=keep_pairs or db_path is not None)
     with tr.span("merge+stats"):
-        total, low_hist, chunks = acc.finalize_stream(ci, cs, **fin_kwargs)
-    # the arrays are encoded on the card from its table: the table thread
-    # only spools and keeps pairs, and on the model path pulls nothing
-    device_encoder = None if sharded else acc.device_encoder
-    for name in ("table.pull_wait", "table.host_prep"):
-        tr.add(name, 0.0)
+        total, low_hist, chunks = acc.finalize_stream(ci, cs, route=route)
 
-    bf_num = 1 if ci == 1 else 3
     writer = None
     if db_path:
         writer = kmc_db.KMC1StreamWriter(db_path, k, min_count=ci,
@@ -385,10 +361,7 @@ def _count_encode(input_spec, k, ci, cs, num_hash, num_bit, seg_len,
             with timing.span("spool.db_write"):
                 writer.write_chunk(ku, kc.astype(np.uint64))
             timing.count("spool.pairs", len(ku))
-        if device_encoder is not None:
-            return None
-        with timing.span("table.host_prep"):
-            return split_chunk(ku, kc, ci, bf_num)
+        return route.split(ku, kc)
 
     # a producer thread owns the pulls, the DB spool and the counter routing
     # so the (GIL-releasing) native encode on this thread only feeds
@@ -398,9 +371,7 @@ def _count_encode(input_spec, k, ci, cs, num_hash, num_bit, seg_len,
 
     try:
         with tr.span("transfer+encode"):
-            km.init_from_chunks(chunks, k, total, low_hist,
-                                device_bloom=acc.device_bloom,
-                                device_encoder=device_encoder)
+            km.init_from_chunks(chunks, k, total, low_hist, route=route)
     except BaseException:
         # a partial spool must not look like a complete database
         if writer is not None:

@@ -44,8 +44,8 @@
 // What holds it below the bound: the pass, not the fill.  Each block's
 // loads are in flight only between its claim and its ballot; about half of
 // a block's life is the look-back, waiting for the tiles just before it to
-// publish their aggregates (tools/time_compact.py --clocks reads the
-// phases), so the pass reads well below a plain copy's rate.  A persistent
+// publish their aggregates (clock64 reads of the phases, PERF.md), so the
+// pass reads well below a plain copy's rate.  A persistent
 // grid that copies its next tile (cp.async.bulk) while it works on the
 // current one ran slower still: a tile claimed ahead publishes its
 // aggregate only when its block gets to it, and every later tile's
@@ -71,21 +71,12 @@ namespace {
 
 // Runs a thread and blocks an SM: 8 x 2 (32 pairs a thread, 96 KB of
 // staging, two blocks an SM) measured faster than 4 x 4 and 3 x 5 on an
-// H100 (PERF.md); tools/time_compact.py builds other values with -D and
-// times them against each other.
+// H100 (PERF.md); other values build with -D.
 #ifndef KX_COMPACT_RUNS
 #define KX_COMPACT_RUNS 8
 #endif
 #ifndef KX_COMPACT_MIN_BLOCKS
 #define KX_COMPACT_MIN_BLOCKS 2
-#endif
-// -DKX_COMPACT_CLOCKS: each block adds its phase clocks (claim, load and
-// count, stage and look-back, stores, 1, its whole life) to 6 words after
-// the scratch, for tools/time_compact.py --clocks.
-#ifdef KX_COMPACT_CLOCKS
-#define CLOCK(...) __VA_ARGS__
-#else
-#define CLOCK(...)
 #endif
 
 constexpr int THREADS = 256;
@@ -125,10 +116,8 @@ __global__ void __launch_bounds__(THREADS, KX_COMPACT_MIN_BLOCKS)
   u64* s_misc = (u64*)(s_warp + WARPS);  // [0] tile, [1] prefix
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  CLOCK(const long long c0 = clock64();)
   if (tid == 0) s_misc[0] = atomicAdd(scratch + SC_COUNTER, 1ull);
   __syncthreads();
-  CLOCK(const long long c1 = clock64();)
   const long long tile = (long long)s_misc[0];
   const long long base = tile * TILE;
   const int tile_n = n - base < TILE ? (int)(n - base) : TILE;
@@ -188,7 +177,6 @@ __global__ void __launch_bounds__(THREADS, KX_COMPACT_MIN_BLOCKS)
   }
   if (lane == 0) s_warp[warp] = warp_total;
   __syncthreads();
-  CLOCK(const long long c2 = clock64();)
   u32 warp_excl = 0, agg = 0;
 #pragma unroll
   for (int w = 0; w < WARPS; ++w) {
@@ -244,19 +232,12 @@ __global__ void __launch_bounds__(THREADS, KX_COMPACT_MIN_BLOCKS)
     }
   }
   __syncthreads();
-  CLOCK(const long long c3 = clock64();)
 
   const long long dst = (long long)s_misc[1];
   for (int i = tid; i < (int)agg; i += THREADS) {
     out_k[dst + i] = s_keys[i];
     out_c[dst + i] = s_cnt[i];
   }
-  CLOCK(if (tid == 0) {
-    const long long c4 = clock64();
-    const long long ph[6] = {c1 - c0, c2 - c1, c3 - c2, c4 - c3, 1, c4 - c0};
-    for (int q = 0; q < 6; ++q)
-      atomicAdd(scratch + SC_STATUS + gridDim.x + q, (u64)ph[q]);
-  })
 }
 
 // (SENTINEL, 0) into [total, n): keys two slots a store, counts four, each

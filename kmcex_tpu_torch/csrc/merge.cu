@@ -49,7 +49,7 @@
 typedef unsigned long long u64;
 typedef unsigned int u32;
 
-// kmcex_tpu_torch/tools/tune_merge.py builds variants of these with -D
+// other values build with -D (PERF.md has the variants measured)
 #ifndef KX_MERGE_THREADS
 #define KX_MERGE_THREADS 256
 #endif

@@ -71,8 +71,8 @@ class BloomBank:
         ``n_threads`` passes through to the native OMP insert; the streaming
         encode calls this from a dedicated worker thread concurrently with
         the array feed and the chunk producer, where spawning the default
-        all-cores OMP team oversubscribes the host (KMCEX_BLOOM_THREADS
-        tunes it; kmodel.init_from_chunks passes 1)."""
+        all-cores OMP team oversubscribes the host (kmodel.init_from_chunks
+        passes ``kmodel.BLOOM_THREADS``, 1)."""
         if len(kmers_u64) == 0:
             return
         native.insert_bloom(

@@ -7,7 +7,9 @@ bank, the rest through the coupled bit arrays with overflow into the exact
 rest store — then serializes to the reference's ``header`` / ``km.bin`` /
 ``rest.bin`` layout.  The listing order is ascending packed k-mer value
 (== KMC1 database order).  The Bloom bank is filled by the host insert or
-from a ``model.device_bloom.DeviceBloomBuilder``.  Queries are batched
+from a ``model.device_bloom.DeviceBloomBuilder``, the coupled arrays by the
+native encoder or ``model.device_encode``: the build's ``model.route``
+says which.  Queries are batched
 (NumPy + the native probes here, ``query.device_model`` on the device);
 scalar string queries keep the reference API shape.  ``init`` builds from a
 KMC database on disk through ``io.kmc_db.KMCReader``.
@@ -15,7 +17,6 @@ KMC database on disk through ``io.kmc_db.KMCReader``.
 
 from __future__ import annotations
 
-import os
 import pathlib
 import queue
 import threading
@@ -35,13 +36,10 @@ _U64 = np.uint64
 
 BUCKET_SIZE = 1 << 18  # reference km insertion bucket (kmodel.hpp:276)
 
-
-def _bloom_threads() -> int:
-    """OMP team size for the streaming encode's Bloom worker.  It runs
-    concurrently with the array feed (main thread) and the chunk-decode
-    producer, so the default all-cores team oversubscribes the host; one
-    thread measures best on the 2-core bench rig."""
-    return int(os.environ.get("KMCEX_BLOOM_THREADS", "1"))
+# OMP team size of the streaming encode's Bloom worker.  It runs beside the
+# array feed (main thread) and the table thread, so the default all-cores
+# team oversubscribes the host; one thread measured best.
+BLOOM_THREADS = 1
 
 
 def km_sizes(km_kmercount: int, n_hash: int) -> tuple[int, int]:
@@ -103,7 +101,7 @@ class _BloomWorker:
             i, kmers = item
             try:
                 with timing.span("encode.bloom_insert"):
-                    bloom.insert(i, kmers, k, n_threads=_bloom_threads())
+                    bloom.insert(i, kmers, k, n_threads=BLOOM_THREADS)
             except BaseException as e:  # noqa: BLE001 — re-raised by the build
                 self.error = e
 
@@ -163,8 +161,7 @@ class KModel:
         )
 
     def init_from_chunks(self, chunk_iter, k: int, total_kmer_count: int,
-                         low_hist: np.ndarray, device_bloom=None,
-                         device_encoder=None) -> None:
+                         low_hist: np.ndarray, route=None) -> None:
         """Streaming build: ``chunk_iter`` yields (kmers_u64, counts) chunks
         in listing order; ``total_kmer_count`` and ``low_hist`` (counts of
         counter==ci+i for i<3) must cover the whole stream (the reference's
@@ -173,18 +170,17 @@ class KModel:
         depends only on overall stream order — and lets device->host pulls
         overlap the encode.
 
-        ``device_bloom`` (model.device_bloom.DeviceBloomBuilder, already
-        fed with this stream's low-count keys) replaces the host Bloom
+        ``route`` (model.route.BuildRoute) is the build's route after the
+        count finalize.  Its ``bloom`` (a device Bloom builder, already fed
+        with this stream's low-count keys) replaces the host Bloom
         insertion entirely: the finished filter bytes are pulled into the
         bank at the end (order-free scatter-OR makes the result
         bit-identical to the host build), and any low-count pairs still
-        present in the chunks are NOT re-inserted.
-
-        ``device_encoder`` (model.device_encode.DeviceArrayEncoder, fed with
-        this stream's array-bound pairs on the card; only beside a
-        ``device_bloom``) replaces the native coupled-array encoder: the
-        chunks are drained unread, and the finished arrays and rest pairs
-        are pulled at the end.
+        present in the chunks are NOT re-inserted.  Its ``encoder`` (a
+        device array encoder, fed with this stream's array-bound pairs on
+        the card; only beside a ``bloom``) replaces the native coupled-array
+        encoder: the chunks are drained unread, and the finished arrays and
+        rest pairs are pulled at the end.
 
         Its phases are spans ``encode.*`` of the current ``utils.timing``
         record (each present, 0.0 where it never ran)."""
@@ -201,15 +197,15 @@ class KModel:
         for name in ("chunk_wait", "array_feed", "array_finish", "rest_build",
                      "route_split"):
             timing.add(f"encode.{name}", 0.0)
-        if device_encoder is not None:
-            if device_bloom is None:
-                raise ValueError("the device encoder needs the device Bloom "
-                                 "build: the chunks' low pairs are not read")
+        bloom = encoder = None
+        if route is not None:
+            bloom, encoder = route.bloom, route.encoder
+        if encoder is not None:
             rest_kmers, rest_occs = self._encode_on_device(
-                chunk_iter, device_encoder, device_bloom)
-        elif device_bloom is not None:
+                chunk_iter, encoder, bloom)
+        elif bloom is not None:
             rest_kmers, rest_occs = self._init_from_chunks_device_bloom(
-                chunk_iter, self._native_encoder(k), device_bloom)
+                chunk_iter, self._native_encoder(k), bloom)
         else:
             # Pass 2: route. BF inserts are commutative scatter-ORs —
             # order-free, so they run on a worker thread (the native insert

@@ -281,8 +281,6 @@ class ShardedCountAccumulator:
         # entries per local shard as they drained at the finalize (keys a
         # shard holds in several runs count once per run): owner balance
         self.shard_sizes: list[int] = []
-        # set by finalize_stream when a bloom_factory ran on the mesh
-        self.device_bloom = None
         self.table_bytes_to_host = 0
 
     # -- views over the shards ---------------------------------------------
@@ -504,35 +502,24 @@ class ShardedCountAccumulator:
         return (np.concatenate([p[0] for p in parts]),
                 np.concatenate([p[1] for p in parts]))
 
-    def _mesh_bloom(self, ci: int, cs: int, bloom_factory):
-        """Build the Bloom bank across the mesh from the shards' merged
-        device runs, when no shard of ANY rank holds a host or disk run
-        (their keys would be missed).  The test comes AFTER the device
-        merge, which can itself spill; with ``world > 1`` it is a reduced
-        flag, so that every rank enters the bitmap reduce or none does."""
-        from kmcex_tpu_torch.model.device_bloom import (
-            ShardedDeviceBloomBuilder,
-        )
-
+    def _mesh_bloom(self, route) -> None:
+        """Hand ``route`` (model.route.BuildRoute) the shards' merged device
+        runs, to build the Bloom bank across the mesh, when no shard of ANY
+        rank holds a host or disk run (their keys would be missed).  The
+        test comes AFTER the device merge, which can itself spill; with
+        ``world > 1`` it is a reduced flag, so that every rank enters the
+        bitmap reduce or none does."""
         flags = [int(self._spilled()), sum(len(sh.runs) for sh in self.shards)]
         if self.mesh.world > 1:
             flags = comm.all_reduce_sum(flags, self.mesh.group,
                                         self.mesh.devices[0])
         if flags[0] or not flags[1]:
-            return None
-        us = [sh.runs[0][0] if sh.runs else None for sh in self.shards]
-        cs_ = [sh.runs[0][1] if sh.runs else None for sh in self.shards]
-        hist = ShardedDeviceBloomBuilder.global_low_hist(
-            self.mesh, us, cs_, ci, cs)
-        try:
-            builder = bloom_factory(hist)
-        except ValueError:  # bitmap too large: the host inserts
-            return None
-        builder.feed_table_sharded(us, cs_)
-        return builder
+            return
+        runs = [sh.runs[0] if sh.runs else (None, None) for sh in self.shards]
+        route.feed_shards(self.mesh, [r[0] for r in runs], [r[1] for r in runs])
 
     def finalize_stream(self, ci: int = 1, cs: int = 0xFFFFFFFF,
-                        n_chunks: int = 16, bloom_factory=None):
+                        n_chunks: int = 16, route=None):
         """Streaming finalize with the (total, low_hist, chunk_iter)
         contract of DeviceCountAccumulator.finalize_stream: ascending
         ci-filtered cs-clamped chunks, ONE k-way merge traversal
@@ -540,20 +527,17 @@ class ShardedCountAccumulator:
         table; to disk when any shard went to disk, else to RAM).
         ``n_chunks`` is kept for API compatibility.
 
-        ``bloom_factory`` (callable(low_hist) ->
-        model.device_bloom.ShardedDeviceBloomBuilder) builds the Bloom bank
-        ACROSS THE MESH before the table drains (``_mesh_bloom``); the
-        builder lands on ``self.device_bloom``, None when it did not
-        engage.
+        ``route`` (model.route.BuildRoute) is handed the shards' runs
+        before the table drains (``_mesh_bloom``), to build the Bloom bank
+        across the mesh; the whole table streams either way.
 
         With ``world > 1`` every rank must call this; the runs of all ranks
         are gathered (``comm.gather_runs``) and every rank returns the
         identical table."""
-        self.device_bloom = None
         self._merge_all_device()
         self._sync_totals()
-        if bloom_factory is not None:
-            self.device_bloom = self._mesh_bloom(ci, cs, bloom_factory)
+        if route is not None:
+            self._mesh_bloom(route)
         self._drain_to_host()
         runs = [r for sh in self.shards for r in sh.host_runs]
         paths = [p for lst in self.disk_runs for p in lst]

@@ -131,8 +131,8 @@ class DeviceKModel:
     # Queries per main pass: the probe tensors scale with N x n_bits x
     # n_hash int64, about 3 KB a query while a pass runs.  A pass is ~450
     # small launches whatever its size, so a tile of 2^16 is bound by the
-    # launches and one of 2^20 by its kernels
-    # (kmcex_tpu_torch/tools/time_query.py).
+    # launches and one of 2^20 by its kernels (measured on an H100 at the
+    # port's bring-up).
     TILE = 1 << 20
     # Tiles uploaded, answered and downloaded together: bounds the device
     # and pinned memory a huge batch takes.

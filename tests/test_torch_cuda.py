@@ -502,10 +502,12 @@ def test_drop_compact_cuda_equals_cpu(dev, ci):
     c = torch.cat([torch.from_numpy(counts.astype(np.int32)),
                    torch.zeros(pad, dtype=torch.int32)])
     thresh = ci + (1 if ci == 1 else 3)
-    wu, wc, wstats = device_lsm._drop_compact(u, c, thresh)
+    wu, wc = device_lsm._drop_low(u, c, thresh)
+    wstats = device_lsm._final_stats(wu, wc, thresh)
     before = kernels.LAUNCHES["compact_pairs"]
-    gu, gc, gstats = device_lsm._drop_compact(u.to(dev), c.to(dev), thresh)
+    gu, gc = device_lsm._drop_low(u.to(dev), c.to(dev), thresh)
     assert kernels.LAUNCHES["compact_pairs"] == before + 1
+    gstats = device_lsm._final_stats(gu, gc, thresh)
     assert torch.equal(gu.cpu(), wu) and torch.equal(gc.cpu(), wc)
     assert np.array_equal(gstats, wstats)
     assert int(gstats[4]) == np.count_nonzero(counts >= thresh)
@@ -555,6 +557,7 @@ def test_count_encode_model_only_cuda_equals_cpu(dev, tmp_path, monkeypatch):
     with the DB (its drop makes the encoder's pairs: as many compaction
     launches) and as the host-insert configuration (the native encoder)."""
     from kmcex_tpu_torch.count.pipeline import count_encode
+    from kmcex_tpu_torch.model import device_bloom
 
     rng = np.random.default_rng(6)
     genome = rng.integers(0, 4, 30000)
@@ -567,15 +570,17 @@ def test_count_encode_model_only_cuda_equals_cpu(dev, tmp_path, monkeypatch):
             r[err] = (r[err] + 1) % 4
             f.write(b"@r%d\n%s\n+\n%s\n" % (i, acgt[r].tobytes(), b"I" * 100))
     saved = {}
-    runs = (("cpu", "cpu", {}, "1"), ("cuda", dev, {}, "1"),
-            ("cuda_db", dev, {"db_path": str(tmp_path / "o.res")}, "1"),
-            ("cuda_host", dev, {}, "0"))
+    runs = (("cpu", "cpu", {}, False), ("cuda", dev, {}, False),
+            ("cuda_db", dev, {"db_path": str(tmp_path / "o.res")}, False),
+            ("cuda_host", dev, {}, True))
     launches, encodes = {}, {}
-    for name, d, kwargs, env in runs:
-        monkeypatch.setenv("KMCEX_DEVICE_BLOOM", env)
+    for name, d, kwargs, host_insert in runs:
         kernels.reset_launches()
-        km, _, _, stats = count_encode(str(fq), k=31, ci=2, device=d,
-                                       keep_pairs=False, **kwargs)
+        with monkeypatch.context() as mp:
+            if host_insert:  # no bitmap fits: the host inserts
+                mp.setattr(device_bloom, "MAX_BITMAP_BYTES", 0)
+            km, _, _, stats = count_encode(str(fq), k=31, ci=2, device=d,
+                                           keep_pairs=False, **kwargs)
         launches[name] = kernels.LAUNCHES["compact_pairs"]
         encodes[name] = kernels.LAUNCHES["encode_arrays"]
         assert (stats.counters.get("encode.device_kmers", 0)

@@ -149,8 +149,8 @@ def test_device_bloom_default_device_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("ci", [1, 2])
 def test_drop_compact_matches_jax(ci):
-    """The low-key drop: the recompacted table and its stats equal the JAX
-    ``_drop_compact``'s."""
+    """The low-key drop (``_drop_low``) and the stats of the table it
+    keeps (``_final_stats``) equal the JAX ``_drop_compact``'s."""
     rng = np.random.default_rng(20 + ci)
     kmers, counts = _rand_table(rng, 3000, 31, 1)
     pad = 1096 - len(kmers) % 1096
@@ -159,7 +159,8 @@ def test_drop_compact_matches_jax(ci):
     thresh = ci + (1 if ci == 1 else 3)
     ju, jc, jstats = j_lsm._drop_compact(jnp.asarray(ku), jnp.asarray(kc),
                                          jnp.uint32(thresh), 1)
-    u2, c2, stats2 = device_lsm._drop_compact(*_dev(ku, kc), thresh)
+    u2, c2 = device_lsm._drop_low(*_dev(ku, kc), thresh)
+    stats2 = device_lsm._final_stats(u2, c2, thresh)
     np.testing.assert_array_equal(u2.numpy().view(np.uint64), np.asarray(ju))
     np.testing.assert_array_equal(c2.numpy(), np.asarray(jc).astype(np.int32))
     np.testing.assert_array_equal(stats2.view(np.uint64),
@@ -220,8 +221,8 @@ def test_count_encode_model_identical_to_jax(config, ci, route, reads,
     want_dir, n_pairs = jax_models[ci]
     if route == "run_lsm":
         monkeypatch.setenv("KMCEX_RAW_TIER_ELEMS", "2000")
-    monkeypatch.setenv("KMCEX_DEVICE_BLOOM",
-                       "0" if config == "host_insert" else "1")
+    if config == "host_insert":  # no bitmap fits: the host inserts
+        monkeypatch.setattr(device_bloom, "MAX_BITMAP_BYTES", 0)
     kwargs = dict(k=19, ci=ci, device="cpu", keep_pairs=False)
     if route == "run_lsm":
         kwargs["batch_segs"] = 64  # several batches, so several collapses
@@ -248,6 +249,7 @@ def test_count_encode_model_identical_to_jax(config, ci, route, reads,
         # only the keys the coupled arrays take crossed to the host
         assert "finalize.drop_low" in stats.phases
         assert stats.table_bytes_to_host == 12 * (n_pairs - n_low)
+        assert stats.counters["table.pairs"] == km.km_kmercount
         assert 0 < n_low < n_pairs
     else:
         assert stats.table_bytes_to_host >= 12 * n_pairs

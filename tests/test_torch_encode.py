@@ -18,7 +18,7 @@ import torch
 
 from kmcex_tpu_torch import native
 from kmcex_tpu_torch.core.occu_bin import OccuBin
-from kmcex_tpu_torch.model import device_encode
+from kmcex_tpu_torch.model import device_bloom, device_encode
 from kmcex_tpu_torch.model.kmodel import km_sizes
 
 K, NH, CS = 31, 7, 1023
@@ -158,9 +158,9 @@ def test_device_route_equals_host_route(tmp_path, monkeypatch, ci):
                                    "spill"])
 def test_other_routes_keep_the_native_encoder(tmp_path, monkeypatch, route):
     """Where the device route does not apply the native encoder runs, and
-    the files are the same: a CPU table, KMCEX_DEVICE_BLOOM=0, a sharded
-    build and a table that spilled to the host (the latter three even where
-    the device encoder would fit)."""
+    the files are the same: a CPU table, a Bloom bitmap too large for the
+    device build, a sharded build and a table that spilled to the host (the
+    latter three even where the device encoder would fit)."""
     fq = _fastq(tmp_path / "r.fastq", seed=7, n_reads=1200)
     _, _, want = _build(fq, tmp_path, "host", 1)
     fed = []
@@ -172,7 +172,7 @@ def test_other_routes_keep_the_native_encoder(tmp_path, monkeypatch, route):
     if route != "cpu":
         monkeypatch.setattr(device_encode, "_fits", lambda d, n: True)
     if route == "no_device_bloom":
-        monkeypatch.setenv("KMCEX_DEVICE_BLOOM", "0")
+        monkeypatch.setattr(device_bloom, "MAX_BITMAP_BYTES", 0)
     elif route == "sharded":
         from kmcex_tpu_torch.parallel import sharded
 

@@ -14,11 +14,14 @@ from kmcex_tpu.parallel import sharded as jsharded
 from kmcex_tpu_torch.core import codec
 from kmcex_tpu_torch.count import extract
 from kmcex_tpu_torch.count.pipeline import count_encode
+from kmcex_tpu_torch.model import device_bloom
 from kmcex_tpu_torch.model.bloom import BloomBank
 from kmcex_tpu_torch.model.device_bloom import (
     DeviceBloomBuilder,
     ShardedDeviceBloomBuilder,
 )
+from kmcex_tpu_torch.model.kmodel import get_model
+from kmcex_tpu_torch.model.route import BuildRoute
 from kmcex_tpu_torch.parallel import sharded
 from tests.test_byte_ranges import _write_fastq
 
@@ -27,6 +30,16 @@ PAD = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 def _cpu_mesh(n):
     return sharded.make_mesh(devices=["cpu"] * n)
+
+
+def _watched_route(k):
+    """A route of a ci = 1 build whose ``feed_shards`` calls are listed in
+    its ``fed``."""
+    route = BuildRoute(get_model(1, 1023, 7, 5), k, keep_low=True)
+    route.fed = []
+    feed = route.feed_shards
+    route.feed_shards = lambda *a: (route.fed.append(a), feed(*a))
+    return route
 
 
 def _model_bytes(km, d):
@@ -42,11 +55,11 @@ def test_sharded_device_bloom_model_identical(tmp_path, monkeypatch, n, ci):
     fq = tmp_path / "reads.fastq"
     _write_fastq(fq, n_reads=600, seed=9)
     k = 19
-    monkeypatch.setenv("KMCEX_DEVICE_BLOOM", "0")
-    km_host, _, _, st_host = count_encode(
-        str(fq), k=k, ci=ci, accumulator="sharded", mesh=_cpu_mesh(n))
+    with monkeypatch.context() as mp:  # no bitmap fits: the host inserts
+        mp.setattr(device_bloom, "MAX_BITMAP_BYTES", 0)
+        km_host, _, _, st_host = count_encode(
+            str(fq), k=k, ci=ci, accumulator="sharded", mesh=_cpu_mesh(n))
     assert "encode.bloom_insert" in st_host.phases
-    monkeypatch.delenv("KMCEX_DEVICE_BLOOM")
     km_mesh, _, _, st_mesh = count_encode(
         str(fq), k=k, ci=ci, accumulator="sharded", mesh=_cpu_mesh(n))
     assert "encode.bloom_insert" not in st_mesh.phases
@@ -116,14 +129,9 @@ def test_sharded_device_bloom_skipped_when_spilled():
     codes = rng.integers(0, 4, size=(8, 64)).astype(np.uint8)
     acc = sharded.ShardedCountAccumulator(mesh, 19, 2, 64, spill_threshold=1)
     acc.add_batch(codes)
-    built = []
-
-    def factory(h):
-        built.append(h)
-        return ShardedDeviceBloomBuilder(mesh, 19, 1, 1023, 7, h)
-
-    total, hist, it = acc.finalize_stream(ci=1, bloom_factory=factory)
-    assert acc.device_bloom is None and not built  # spilled -> host build
+    route = _watched_route(19)
+    total, hist, it = acc.finalize_stream(ci=1, route=route)
+    assert route.bloom is None and not route.fed  # spilled -> host build
     got = np.concatenate([p[0] for p in it])
     flat = extract.extract_canonical(torch.from_numpy(codes), 19)[0]
     flat = flat.numpy().view(np.uint64)
@@ -162,11 +170,10 @@ def test_sharded_device_bloom_skipped_on_finalize_time_spill():
     # the finalize-time cascade (2 + 3 batches -> one run) crosses this
     for sh in acc.shards:
         sh.spill_threshold = sh.runs[1][2] + 1
-    total, hist, it = acc.finalize_stream(
-        ci=1, bloom_factory=lambda h: ShardedDeviceBloomBuilder(
-            mesh, k, 1, 1023, 7, h))
+    route = _watched_route(k)
+    total, hist, it = acc.finalize_stream(ci=1, route=route)
     assert acc.tier_events["host_spills"] > 0
-    assert acc.device_bloom is None, \
+    assert route.bloom is None and not route.fed, \
         "builder must not engage after a finalize-time spill"
     parts = list(it)
     got_k = np.concatenate([p[0] for p in parts])

@@ -25,6 +25,7 @@ from kmcex_tpu_torch.count import device_lsm as tlsm
 from kmcex_tpu_torch.count import pipeline as tpipe
 from kmcex_tpu_torch.model.device_bloom import DeviceBloomBuilder
 from kmcex_tpu_torch.model.kmodel import get_model as tget_model
+from kmcex_tpu_torch.model.route import BuildRoute
 
 JaxAcc = jlsm.DeviceCountAccumulator
 TorchAcc = tlsm.DeviceCountAccumulator
@@ -241,9 +242,10 @@ def test_spill_to_host_equals_jax(ci, cs):
         np.testing.assert_array_equal(tc, jc)
     assert tacc.spill_stats["copy_bytes"] > 0
     want = _drain(jacc.finalize_stream(ci=ci, cs=cs))
-    got = _drain(tacc.finalize_stream(ci=ci, cs=cs))
+    route = BuildRoute(tget_model(ci, cs, 7, 5), k, keep_low=True)
+    got = _drain(tacc.finalize_stream(ci=ci, cs=cs, route=route))
     _assert_same(got, want)
-    assert tacc.device_bloom is None
+    assert route.bloom is None and route.encoder is None
     # finalize() against finalize_stream(), and against the unspilled build
     jacc2, tacc2 = _both(k, batches, **kw)
     fk, fc = tacc2.finalize(ci=ci, cs=cs)
@@ -401,24 +403,23 @@ def test_finalize_time_spill_with_bloom_factory(tmp_path):
                     device="cpu")
     _stage_finalize_time_spill(jacc, batches)
     _stage_finalize_time_spill(tacc, batches)
+    tkm = tget_model(ci, cs, nh, nb)
+    # a model-only route: it would drop the low pairs on the device
+    route = BuildRoute(tkm, k, keep_low=False)
     made = []
+    plan = route.plan_table
+    route.plan_table = lambda *a: (made.append(a), plan(*a))[1]
 
-    def factory(hist):
-        made.append(hist)
-        return DeviceBloomBuilder(k, ci, cs, nh, hist, device="cpu")
-
-    total, hist, chunks = tacc.finalize_stream(ci, cs, bloom_factory=factory,
-                                               drop_low=True)
+    total, hist, chunks = tacc.finalize_stream(ci, cs, route=route)
     assert tacc.tier_events["host_spills"] > 0
-    assert tacc.device_bloom is None and not made, \
+    assert route.bloom is None and not made, \
         "no device Bloom build after a finalize-time spill"
     got = _drain((total, hist, chunks))
     want = _drain(jacc.finalize_stream(ci, cs))
-    _assert_same(got, want)  # drop_low ignored: the low pairs are all there
+    _assert_same(got, want)  # no drop: the low pairs are all there
 
-    tkm = tget_model(ci, cs, nh, nb)
     tkm.init_from_chunks(iter([(got[2], got[3])]), k, got[0], got[1],
-                         device_bloom=tacc.device_bloom)
+                         route=route)
     jkm = jget_model(ci, cs, nh, nb)
     jkm.init_from_chunks(iter([(want[2], want[3])]), k, want[0], want[1])
     tkm.save(tmp_path / "t")
@@ -435,9 +436,9 @@ def test_unspilled_merge_route_still_builds_on_device():
                    device="cpu")
     _stage_finalize_time_spill(acc, _batches(17, 11, 4, 64))
     acc.spill_threshold = 1 << 60
-    acc.finalize_stream(1, 1023, bloom_factory=lambda h: DeviceBloomBuilder(
-        k, 1, 1023, 7, h, device="cpu"))
-    assert acc.device_bloom is not None and not acc.host_runs
+    route = BuildRoute(tget_model(1, 1023, 7, 5), k, keep_low=True)
+    acc.finalize_stream(1, 1023, route=route)
+    assert route.bloom is not None and not acc.host_runs
 
 
 # ------------------------------------------------ host accumulator, entry
@@ -632,7 +633,8 @@ def test_low_key_drop_and_bloom_feed_read_counts_unsigned():
     u = torch.tensor([3, 8, 20, -1], dtype=torch.int64)
     c = torch.from_numpy(np.array([1, 3_000_000_000, 2, 0],
                                   np.uint32).view(np.int32))
-    u2, c2, flat = tlsm._drop_compact(u, c, 2)
+    u2, c2 = tlsm._drop_low(u, c, 2)
+    flat = tlsm._final_stats(u2, c2, 2)
     assert u2.tolist()[:2] == [8, 20] and int(flat[0]) == 2
     assert c2.numpy().view(np.uint32).tolist()[:2] == [3_000_000_000, 2]
     stats = tlsm._final_stats(u, c, 1)
